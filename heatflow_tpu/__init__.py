@@ -1,5 +1,5 @@
-"""heatflow_tpu — a TPU-native framework for transient heat conduction in
-laser-heated diamond-anvil-cell (DAC) experiments.
+"""heatflow_tpu — a JAX framework for transient heat conduction in
+laser-heated diamond-anvil-cell (DAC) experiments, run on GPUs.
 
 A ground-up JAX/XLA re-design of the capabilities of ``cebarker1000/heatflow``
 (FEniCSx/PETSc/gmsh based): axisymmetric transient heat conduction on
@@ -8,12 +8,12 @@ by experimental data, radial-gradient extraction, a 1D reduced model with
 radial correction, massively-parallel parameter sweeps, and an
 experimental-fit analysis pipeline.
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
   * meshes are device-resident arrays built from a graded structured grid;
   * the implicit operator is a 7-point stencil with per-node coefficients
-    (pure VPU elementwise work — no scatter in the hot loop);
+    (elementwise work — no scatter in the hot loop);
   * backward-Euler steps are preconditioned-CG solves inside ``lax.scan``;
-  * parameter sweeps are ``vmap``-ed batches sharded over a TPU mesh
+  * parameter sweeps are ``vmap``-ed batches sharded over a device mesh
     (replacing the reference's multiprocessing pool,
     ref: parameter_sweep.py:436-446);
   * an unstructured ELL-SpMV path covers imported gmsh ``.msh`` meshes.

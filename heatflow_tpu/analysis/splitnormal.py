@@ -7,7 +7,7 @@ only the amplitude with shape parameters frozen to their time averages; the
 fitted curves export to a gradient-format CSV consumed by the corrected 1D
 model (ref no_diamond_1d.py:41-54).
 
-TPU-native re-design: a damped Gauss-Newton (Levenberg-Marquardt) solver with
+Accelerator re-design: a damped Gauss-Newton (Levenberg-Marquardt) solver with
 analytic Jacobians, vmapped over (timestep × initial guess) so the entire
 time series fits in one jitted call; the amplitude-only pass is solved in
 closed form (it is linear least squares).
@@ -105,6 +105,15 @@ def _project(params, r_lo, r_hi):
                       jnp.clip(sr, 1e-12, r_range), off])
 
 
+def normal_equations(J, w, res):
+    """Gauss-Newton gradient ``Jᵀ res`` and normal matrix ``Jᵀ diag(w) J``.
+    Full-precision contractions: at default precision a GPU may run an f32
+    matmul in TF32 (~3 significant digits), too coarse for the LM step."""
+    g = jnp.matmul(J.T, res, precision="highest")
+    H = jnp.matmul((J * w[:, None]).T, J, precision="highest")
+    return g, H
+
+
 @partial(jax.jit, static_argnames=("iters",))
 def _lm_fit(r, y, p0, r_lo, r_hi, iters: int = 60):
     """Levenberg-Marquardt on the 5-parameter model, masked-NaN aware."""
@@ -116,8 +125,7 @@ def _lm_fit(r, y, p0, r_lo, r_hi, iters: int = 60):
         p, lam, best_p, best_err = state
         f, J = _model_and_jac(p, r)
         res = (y0 - jnp.where(valid, f, 0.0)) * w
-        g = J.T @ res
-        H = (J * w[:, None]).T @ J
+        g, H = normal_equations(J, w, res)
         step = jnp.linalg.solve(H + lam * jnp.diag(jnp.diag(H))
                                 + 1e-30 * jnp.eye(5), g)
         p_new = _project(p + step, r_lo, r_hi)

@@ -9,19 +9,18 @@ reference: used_config.yaml, watcher_points.csv, output.xdmf.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
 import jax
 import numpy as np
-import yaml
 
 from heatflow_tpu.config import load_config, save_config
 from heatflow_tpu.drivers.run2d import (default_dtype, _prepare_mesh,
                                         suppress_output)
 from heatflow_tpu.geometry import coupler_watcher_points
 from heatflow_tpu.io.csvio import write_watcher_csv
-from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
 from heatflow_tpu.sim.bc import HeatingCurve
 from heatflow_tpu.sim.reduced1d import (GradientTable, build_problem_1d,
                                         extract_axis_submesh,
@@ -154,6 +153,7 @@ def run_1d(cfg, mesh_folder_2d, mesh_folder_1d=None, rebuild_mesh=False,
                 os.path.join(save_folder, "watcher_points.csv"), ys["times"],
                 {n: ys["watch"][:, k] for k, n in enumerate(watcher_z)})
         if write_xdmf:
+            from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
             nodes = np.stack([z, np.zeros_like(z)], axis=1)
             cells = np.stack([np.arange(len(z) - 1),
                               np.arange(1, len(z))], axis=1)
@@ -186,7 +186,7 @@ def main(argv=None):
     args = p.parse_args(argv)
     cfg = load_config(args.config)
     wp = coupler_watcher_points(cfg) if args.watcher_points == "auto" \
-        else yaml.safe_load(args.watcher_points)
+        else json.loads(args.watcher_points)
     run_1d(cfg, args.mesh_folder_2d, rebuild_mesh=args.rebuild_mesh,
            output_folder=args.output_folder, watcher_points=wp,
            write_xdmf=args.write_xdmf,

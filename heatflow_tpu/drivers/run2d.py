@@ -19,20 +19,20 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import json
 import os
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import yaml
 
-from heatflow_tpu.config import load_config, save_config, validate_config
+from heatflow_tpu.config import (load_config, load_yaml, save_config,
+                                 validate_config)
 from heatflow_tpu.geometry import build_layout, coupler_watcher_points
 from heatflow_tpu.mesh.msh_io import write_msh
 from heatflow_tpu.mesh.structured import build_structured_mesh, mesh_from_meta
 from heatflow_tpu.io.csvio import write_gradient_csv, write_watcher_csv
-from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
 from heatflow_tpu.sim.bc import HeatingCurve
 from heatflow_tpu.sim.problem import build_problem
 from heatflow_tpu.sim.stepper import run_transient
@@ -51,7 +51,7 @@ def suppress_output(enabled: bool):
 
 
 def default_dtype():
-    """float64 when x64 is enabled (CPU parity runs), else float32 (TPU)."""
+    """float64 when x64 is enabled (parity runs), else float32."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 
@@ -60,7 +60,7 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
     """Build-or-load the mesh, persisting/consuming mesh.msh + mesh_cfg.yaml
     exactly like the reference (ref run_no_diamond.py:140-180).
 
-    mesh_style: 'structured' (graded tensor grid, the TPU-native default) or
+    mesh_style: 'structured' (graded tensor grid, the default) or
     'unstructured' (graded non-grid triangulation — the analogue of the
     reference's gmsh meshes, ref mesh_and_materials/mesh.py:81-149; runs
     through the ELL operator path)."""
@@ -77,12 +77,11 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
             umesh = build_unstructured_mesh(domain, mats)
             mesh_cfg["material_tags"] = dict(umesh.material_tags)
             # no structured_grid key → reloads through the import path
-            with open(mesh_cfg_path, "w") as f:
-                yaml.safe_dump(mesh_cfg, f)
+            save_config(mesh_cfg, mesh_cfg_path)
             write_msh(mesh_file_path, umesh.nodes, umesh.cells,
                       umesh.cell_tags, umesh.material_tags)
             if umesh.grid_overlay is not None:
-                # lattice sidecar → the TPU-fast 9-point stencil path
+                # lattice sidecar → the 9-point stencil operator path
                 np.savez(os.path.join(mesh_folder, "mesh_overlay.npz"),
                          shape=np.asarray(umesh.grid_overlay["shape"]),
                          index=umesh.grid_overlay["index"])
@@ -92,8 +91,7 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
         mesh = build_structured_mesh(domain, mats)
         mesh_cfg["material_tags"] = dict(mesh.material_tags)
         mesh_cfg["structured_grid"] = mesh.to_meta()
-        with open(mesh_cfg_path, "w") as f:
-            yaml.safe_dump(mesh_cfg, f)
+        save_config(mesh_cfg, mesh_cfg_path)
         tris, tri_tags = mesh.triangles()
         write_msh(mesh_file_path, mesh.node_coords(), tris, tri_tags,
                   mesh.material_tags)
@@ -104,8 +102,7 @@ def _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
     if missing:
         raise FileNotFoundError(
             f"Missing required file(s) in {mesh_folder}: {', '.join(missing)}")
-    with open(mesh_cfg_path) as f:
-        mesh_cfg = yaml.safe_load(f)
+    mesh_cfg = load_yaml(mesh_cfg_path)
     if mesh_style == "unstructured" and "structured_grid" in mesh_cfg:
         raise ValueError(
             f"{mesh_folder} holds a structured mesh but "
@@ -156,9 +153,8 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
                           else "previous")
         if rtol is None:
             # increment-relative stopping (stepper default rtol_wrt='r0'):
-            # 1e-4 keeps f32 traces at the f32 noise floor (BENCHMARKS.md);
-            # with refinement it is the inner correction tolerance (2e-5 K
-            # flagship trace error at N=2 — BENCHMARKS.md)
+            # 1e-4 keeps f32 traces at the f32 noise floor; with refinement
+            # it is the inner correction tolerance
             rtol = 1e-11 if dtype == jnp.float64 else 1e-4
 
         mesh = _prepare_mesh(cfg, mesh_folder, rebuild_mesh, layout,
@@ -171,51 +167,25 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         from heatflow_tpu.mesh.msh_io import UnstructuredMesh
         if precondition is None:
             # per-regime line-preconditioner defaults for f32 structured
-            # runs (pure-f32 'adi', refined 'adaptive' on the VMEM path,
-            # recording overlays 'rline') — measured regime map in
-            # BENCHMARKS.md; see utils.resolve_recording_precondition.
-            # The unstructured rline engine is the overlay VMEM kernel,
-            # so the default must check what 'auto' (or an explicit
-            # 'xla') will actually run, not the solver string.
+            # runs (pure-f32 'adi', refined 'rline'); see
+            # utils.resolve_recording_precondition. rtol_wrt forwarded
+            # explicitly (run2d always steps with increment-relative 'r0'
+            # stopping — see the make_simulate_fn call below) so the
+            # resolver's adi-only-under-r0 guard is wired to the actual
+            # stopping rule
             from heatflow_tpu.utils import resolve_recording_precondition
-            unstructured_xla = False
-            vmem_single = False
-            if isinstance(mesh, UnstructuredMesh):
-                if solver == "auto":
-                    from heatflow_tpu.sim.unstructured import \
-                        auto_selects_vmem
-                    unstructured_xla = not auto_selects_vmem(
-                        mesh, dtype, precondition="rline")
-                else:
-                    unstructured_xla = solver == "xla"
-            elif solver in ("auto", "vmem") and z_shards == 1 \
-                    and jax.default_backend() == "tpu" \
-                    and jnp.dtype(dtype) == jnp.float32:
-                # will make_simulate_fn's VMEM path engage? (the adaptive
-                # switch has no XLA fallback)
-                from heatflow_tpu.ops.pallas_cg import (adi_extra_planes,
-                                                        fits_in_vmem)
-                nzs, nrs = mesh.shape
-                vmem_single = fits_in_vmem(
-                    nzs, nrs, dtype,
-                    extra_planes=adi_extra_planes(nzs, nrs))
-            # rtol_wrt forwarded explicitly (run2d always steps with
-            # increment-relative 'r0' stopping — see the make_simulate_fn
-            # call below) so the resolver's adi-only-under-r0 guard is
-            # wired to the actual stopping rule, not an assumed default
             precondition = resolve_recording_precondition(
-                record_gradient, dtype, unstructured_xla=unstructured_xla,
+                record_gradient, dtype,
                 unstructured=isinstance(mesh, UnstructuredMesh),
-                f64_refine=f64_refine, vmem_single=vmem_single,
-                rtol_wrt="r0")
+                f64_refine=f64_refine, rtol_wrt="r0")
         if isinstance(mesh, UnstructuredMesh):
             if z_shards > 1:
                 # z-sharding is wired for the structured stepper only
-                # (make_simulate_fn(mesh=...)); a silent single-chip run
+                # (make_simulate_fn(mesh=...)); a silent single-device run
                 # here would contradict the flag the user relied on
                 raise ValueError(
                     "--z-shards applies to structured meshes only (the "
-                    "unstructured path runs whole problems on one chip); "
+                    "unstructured path runs whole problems on one device); "
                     "drop the flag or use --mesh-style structured")
             return _run_unstructured(cfg, mesh, output_folder,
                                      watcher_points, write_xdmf,
@@ -270,7 +240,7 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
         dev_mesh = None
         if z_shards > 1:
             # shard THIS problem's z axis over the first z_shards devices
-            # (SURVEY §2.3 item 2: problems too big for one chip)
+            # (SURVEY §2.3 item 2: problems too big for one device)
             from heatflow_tpu.parallel.sharding import config_mesh
             dev_mesh = config_mesh(n_devices=z_shards, z_shards=z_shards)
             print(f"z-sharding the field over {z_shards} devices")
@@ -304,6 +274,7 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
                 os.path.join(save_folder, "radial_gradient_raw.csv"),
                 result.times, result.axis_z, result.axis_rows)
         if write_xdmf:
+            from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
             tris, _ = mesh.triangles()
             w = XDMFTimeSeriesWriter(
                 os.path.join(save_folder, "output.xdmf"),
@@ -336,7 +307,7 @@ def run_simulation(cfg, mesh_folder, rebuild_mesh=False, visualize_mesh=False,
 
 def _run_unstructured(cfg, umesh, output_folder, watcher_points, write_xdmf,
                       *, dtype, rtol, maxiter, record_gradient,
-                      solver="xla", profile_dir=None, resume_from=None,
+                      solver="auto", profile_dir=None, resume_from=None,
                       write_checkpoint=True, warm_start="previous",
                       precondition="jacobi", f64_refine=0):
     """Transient run on an imported gmsh mesh via the ELL operator path,
@@ -393,6 +364,7 @@ def _run_unstructured(cfg, umesh, output_folder, watcher_points, write_xdmf,
             os.path.join(save_folder, "radial_gradient_raw.csv"),
             ys["times"], problem.axis_z, ys["axis"])
     if write_xdmf:
+        from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
         w = XDMFTimeSeriesWriter(os.path.join(save_folder, "output.xdmf"),
                                  umesh.nodes, umesh.cells)
         w.write(np.full(len(umesh.nodes), problem.ic_temp), 0.0)
@@ -416,8 +388,9 @@ def main(argv=None):
     p.add_argument("--visualize-mesh", action="store_true")
     p.add_argument("--output-folder", type=str, default=None)
     p.add_argument("--watcher-points", type=str, default=None,
-                   help="YAML/JSON mapping name -> [z, r]; 'auto' places "
-                        "points at the coupler centers")
+                   help="JSON mapping name -> [z, r], e.g. "
+                        "'{\"pside\": [1e-6, 0]}'; 'auto' places points at "
+                        "the coupler centers")
     p.add_argument("--write-xdmf", action="store_true")
     p.add_argument("--suppress-print", action="store_true")
     p.add_argument("--layout", choices=["auto", "no_diamond", "with_diamond",
@@ -430,11 +403,9 @@ def main(argv=None):
                    default="structured",
                    help="'unstructured': graded non-grid triangulation (the "
                         "gmsh-mesh analogue, runs through the ELL path)")
-    p.add_argument("--solver", choices=["xla", "vmem", "auto"],
-                   default="auto",
-                   help="default 'auto' engages the VMEM-resident Pallas "
-                        "CG on TPU f32 when the problem fits; 'xla' forces "
-                        "the streaming path")
+    p.add_argument("--solver", choices=["auto", "xla"], default="auto",
+                   help="'auto' and 'xla' both name the XLA engine (kept "
+                        "for command-line compatibility)")
     p.add_argument("--profile-dir", type=str, default=None,
                    help="capture a jax.profiler trace into this directory")
     p.add_argument("--resume", type=str, default=None,
@@ -442,41 +413,36 @@ def main(argv=None):
     p.add_argument("--warm-start", choices=["previous", "extrapolate"],
                    default=None,
                    help="CG seed per step: previous solution, or its linear "
-                        "time extrapolation (same cost, ~2x lower f32 trace "
-                        "error at equal iterations — BENCHMARKS.md). "
+                        "time extrapolation (same cost, lower f32 trace "
+                        "error at equal iterations). "
                         "Default: extrapolate at f32, previous at f64")
     p.add_argument("--precondition",
-                   choices=["jacobi", "rline", "zline", "adi", "mg",
-                            "adaptive", "mgz"],
+                   choices=["jacobi", "rline", "zline", "adi", "mg"],
                    default=None,
                    help="CG preconditioner: 'rline' = r-line "
-                        "block-tridiagonal via precomputed PCR (~6-8x fewer "
-                        "iterations on DAC operators), 'adi' = split-"
-                        "additive r-line + z-line (further iteration cut, "
-                        "best on cold/deep solves), 'adaptive' = per-step "
-                        "rline/adi switch (VMEM path; the official "
-                        "refined-point recipe), 'mg' = Galerkin multigrid "
-                        "V-cycle. Default: the measured per-regime choice "
-                        "(pure-f32 'adi', refined 'adaptive' on TPU, "
-                        "overlay recording 'rline', f64 'jacobi') — "
-                        "BENCHMARKS.md regime map")
+                        "block-tridiagonal via precomputed PCR (several-"
+                        "fold fewer iterations on DAC operators), 'adi' = "
+                        "split-additive r-line + z-line (further iteration "
+                        "cut, best on cold/deep solves), 'mg' = Galerkin "
+                        "multigrid V-cycle. Default: per regime (pure-f32 "
+                        "'adi', refined 'rline', f64 and unstructured "
+                        "'jacobi')")
     p.add_argument("--f64-refine", type=int, default=0,
                    help="mixed-precision iterative refinement: N passes of "
                         "f64-residual / f32-correction per step (enables "
-                        "x64; near-f64 trace accuracy at f32 solve speed — "
-                        "measured 2e-5 K peak flagship error at 152 steps/s "
-                        "with N=2 --rtol 1e-4, BENCHMARKS.md)")
+                        "x64; near-f64 trace accuracy at f32 solve cost)")
     p.add_argument("--z-shards", type=int, default=1,
                    help="shard the field's z axis over this many devices "
-                        "(single-problem spatial sharding; XLA solver path; "
-                        "Nz must divide evenly)")
+                        "(single-problem spatial sharding; Nz must divide "
+                        "evenly)")
     p.add_argument("--rtol", type=float, default=None,
                    help="CG stopping tolerance (increment-relative, "
                         "rtol_wrt='r0'; with --f64-refine: the inner "
                         "correction solves' tolerance). Default: 1e-11 at "
-                        "f64, 1e-4 at f32 — the documented speed/accuracy "
-                        "points (BENCHMARKS.md)")
+                        "f64, 1e-4 at f32")
     args = p.parse_args(argv)
+    from heatflow_tpu.utils import enable_compilation_cache
+    enable_compilation_cache()
     if args.f64_refine:
         # the refinement's f64 outer residual needs x64 (validated in
         # make_simulate_fn); the f32 inner path is explicitly cast
@@ -486,7 +452,7 @@ def main(argv=None):
     if args.watcher_points == "auto":
         wp = coupler_watcher_points(cfg)
     elif args.watcher_points:
-        wp = {k: tuple(v) for k, v in yaml.safe_load(args.watcher_points).items()}
+        wp = {k: tuple(v) for k, v in json.loads(args.watcher_points).items()}
     else:
         wp = None
     run_simulation(cfg, args.mesh_folder, args.rebuild_mesh,

@@ -8,13 +8,11 @@ import argparse
 import os
 
 import numpy as np
-import yaml
 
 from heatflow_tpu.config import load_config, save_config
 from heatflow_tpu.drivers.run2d import _prepare_mesh, default_dtype
 from heatflow_tpu.geometry import coupler_watcher_points
 from heatflow_tpu.io.csvio import write_watcher_csv
-from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
 from heatflow_tpu.sim.bc import HeatingCurve
 from heatflow_tpu.sim.problem import build_problem
 from heatflow_tpu.sim.steady import solve_steady, steady_heating_values
@@ -48,6 +46,7 @@ def run_steady(cfg, mesh_folder, *, rebuild_mesh=False, output_folder=None,
     np.save(os.path.join(save_folder, "steady_field.npy"), u)
     if write_xdmf:
         tris, _ = mesh.triangles()
+        from heatflow_tpu.io.xdmfio import XDMFTimeSeriesWriter
         w = XDMFTimeSeriesWriter(os.path.join(save_folder, "steady.xdmf"),
                                  mesh.node_coords(), tris)
         w.write(u.ravel(), 0.0)

@@ -12,8 +12,14 @@ from __future__ import annotations
 import os
 import xml.etree.ElementTree as ET
 
-import h5py
 import numpy as np
+
+try:
+    import h5py
+except ImportError as e:        # optional dependency (the 'extras' extra)
+    raise ImportError("XDMF output needs h5py, which is not installed; "
+                      "install heatflow-tpu[extras] or run without XDMF "
+                      "output (--write-xdmf off)") from e
 
 _TOPO_TYPE = {3: "Triangle", 2: "Polyline"}
 

@@ -20,12 +20,12 @@ import numpy as np
 class UnstructuredMesh:
     """Generic imported mesh: nodes + simplices + per-cell physical tags.
 
-    grid_overlay: optional TPU acceleration metadata — when the mesh
+    grid_overlay: optional stencil-path metadata — when the mesh
     *topology* embeds in a 2D lattice (irregular node positions and mixed
     diagonals are fine), {"shape": (nzg, nrg), "index": (N,) flat lattice id
     per node}. The assembled operator then converts to a permuted 9-point
-    stencil (ops/overlay.py): shifted multiply-adds instead of gathers,
-    which TPUs cannot vectorize. Persisted as a mesh_overlay.npz sidecar.
+    stencil (ops/overlay.py): shifted multiply-adds instead of gathers.
+    Persisted as a mesh_overlay.npz sidecar.
     """
 
     nodes: np.ndarray               # (N, 2) (z, r)

@@ -1,7 +1,7 @@
 """Structured graded tensor-product mesh over a multi-material rectangle stack.
 
 This replaces gmsh (the reference's C++ meshing dependency,
-ref: mesh_and_materials/mesh.py:81-149) with a TPU-friendly design: the mesh
+ref: mesh_and_materials/mesh.py:81-149) with an array-friendly design: the mesh
 is a graded (z, r) tensor grid; every quad cell is split into two P1 triangles
 with a consistent diagonal; material ids live on cells. All arrays are plain
 numpy at build time and become device arrays inside the solvers.
@@ -148,6 +148,8 @@ def mesh_from_meta(meta: dict, materials: list[MaterialSpec] | None = None
     else:
         raise ValueError("mesh_from_meta requires the material list to "
                          "re-derive cell tags")
+    # insertion order is tag order (the stencil slot order the sweep makers
+    # index by); a saved mapping may come back in another key order
+    tags = dict(sorted(meta["material_tags"].items(), key=lambda kv: kv[1]))
     return StructuredMesh(z=z, r=r, cell_tags=cell_tags,
-                          material_tags=dict(meta["material_tags"]),
-                          materials=mats)
+                          material_tags=tags, materials=mats)

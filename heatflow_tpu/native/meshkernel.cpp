@@ -3,7 +3,7 @@
 // Host-side C++ counterpart of the reference stack's native meshing and
 // element-assembly layers (gmsh C++ and DOLFINx/FFCx generated C kernels,
 // ref mesh_and_materials/mesh.py:81-149 driving gmsh, space_and_forms.py
-// driving FFCx). The TPU compute path stays JAX/XLA; this library accelerates
+// driving FFCx). The device compute path stays JAX/XLA; this library accelerates
 // the one-time host-side setup: graded axis generation, cell tagging, and
 // exact closed-form P1 stencil assembly for large meshes.
 //

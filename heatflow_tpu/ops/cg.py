@@ -1,6 +1,6 @@
 """Preconditioned conjugate-gradient solvers.
 
-The TPU-native replacement for PETSc KSP(PREONLY)+LU(MUMPS)
+The accelerator-side replacement for PETSc KSP(PREONLY)+LU(MUMPS)
 (ref: run_no_diamond.py:339-344): instead of a factor-once direct solve, each
 backward-Euler step is an iterative solve against the matrix-free stencil
 operator. Everything is jit-compatible (lax.while_loop / lax.scan) and
@@ -46,8 +46,8 @@ def _dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def refine_inner_scale(rn2, floor2, rtol, dtype):
-    """Shared guard for the f64-residual refinement passes (stepper,
-    unstructured, and batched-sweep variants): given the squared f64
+    """Shared guard for the f64-residual refinement passes
+    (:func:`refined_solve`): given the squared f64
     residual norm(s) ``rn2`` and the degenerate-rhs floor ``floor2``,
     return ``(rnorm, rtol_eff)`` for the f32 inner correction solve.
 
@@ -219,3 +219,39 @@ def pcg_fixed(apply_op, b, x0, *, precond=None, mask=None, iters: int = 50
     rnorm = jnp.sqrt(_dot(r, r))
     return CGResult(x=x, iters=jnp.asarray(iters, jnp.int32), residual=rnorm,
                     converged=jnp.asarray(True))
+
+
+def refined_solve(apply_op, apply_op32, b, y0, mask, *, passes: int,
+                  rtol, maxiter: int, dtype, precond=None, seeds=None):
+    """Mixed-precision iterative refinement of ``apply_op(y) = b`` on the
+    ``mask`` dofs: ``passes`` rounds of residual against the f64 operator
+    ``apply_op``, f32 correction solve with ``apply_op32`` (+ ``precond``)
+    to ``rtol`` wrt its own unit-normalized rhs, update accumulated in
+    f64. ``seeds``: optional (passes, ...) inner-CG seeds (the previous
+    step's corrections); zero seeds otherwise.
+
+    Returns (y, total inner iterations, (passes, ...) corrections).
+
+    Inner stop floor: once the f64 residual is at f64 roundoff relative to
+    the full rhs there is nothing left to correct — and the f32 target
+    rtol²·‖r‖² would underflow to denormals, leaving the inner CG grinding
+    on noise until maxiter (see :func:`refine_inner_scale`)."""
+    mask32 = mask.astype(dtype)
+    floor2 = jnp.asarray(1e-30, b.dtype) * _dot(b, b)
+    y = y0
+    iters = jnp.zeros((), jnp.int32)
+    zero = jnp.zeros(b.shape, dtype)
+    dys = []
+    for i in range(passes):
+        r64 = b - mask * apply_op(y)
+        rnorm, rtol_eff = refine_inner_scale(_dot(r64, r64), floor2, rtol,
+                                             dtype)
+        r32 = (r64 / rnorm).astype(dtype)
+        seed = zero if seeds is None else refine_inner_seed(seeds[i],
+                                                            rtol_eff)
+        sol = pcg(apply_op32, r32, seed, precond=precond, mask=mask32,
+                  rtol=rtol_eff, maxiter=maxiter, rtol_wrt="b")
+        dys.append(sol.x)
+        y = y + sol.x.astype(y.dtype) * rnorm
+        iters = iters + sol.iters
+    return y, iters, jnp.stack(dys)

@@ -134,8 +134,8 @@ def ell_apply(cols: jnp.ndarray, vals: jnp.ndarray, u: jnp.ndarray
 def ell_combine(K_vals, M_vals, kappas, rho_cvs, dt):
     """(A_vals, M_vals_op) for a backward-Euler step.
 
-    Unrolled multiply-add, NOT an einsum: on TPU a batched-coefficient
-    einsum lowers to a bf16-input dot_general that perturbs the operator
+    Unrolled multiply-add, NOT an einsum: a batched-coefficient einsum may
+    lower to a reduced-precision dot_general that perturbs the operator
     enough to make it indefinite (see stencil.material_combine)."""
     from heatflow_tpu.ops.stencil import material_combine
     M_op = material_combine(rho_cvs, M_vals)

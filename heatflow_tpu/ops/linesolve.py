@@ -2,20 +2,19 @@
 
 The flagship operator's conditioning is dominated by the r-direction
 coupling (fine radial grading near the heating axis: r-line block-Jacobi
-cuts cold-solve CG iterations ~6-8x where z-line does nothing — measured,
-see BENCHMARKS.md).  Block-Jacobi with one tridiagonal block per grid line
+cuts cold-solve CG iterations several-fold where z-line does little).
+Block-Jacobi with one tridiagonal block per grid line
 is SPD (principal submatrices of an SPD operator), so it is a valid CG
 preconditioner; each application solves an independent tridiagonal system
 per line.
 
-A Thomas sweep along the 1107-lane r axis would serialize on TPU, so the
+A Thomas sweep along the 1107-node r axis is a sequential recurrence, so the
 solve is parallel cyclic reduction (PCR): ceil(log2(N)) levels of uniform
 full-array elementwise updates — shifted multiply-adds only, the same
-pattern as the stencil apply, no gathers and no strided slices (the two
-things Mosaic rejects).  Crucially the backward-Euler operator is constant
-across the whole transient, so the PCR *factorization* (the per-level
-elimination coefficients) is computed once per solve setup and only the
-cheap rhs phase runs per CG iteration:
+pattern as the stencil apply, no gathers and no strided slices. Crucially
+the backward-Euler operator is constant across the whole transient, so the
+PCR *factorization* (the per-level elimination coefficients) is computed
+once per solve setup and only the cheap rhs phase runs per CG iteration:
 
     level k, stride s=2^k, unit-diagonal system  x_i + l_i x_{i-s} + u_i x_{i+s} = d_i:
         alpha_i = 1 - l_i u_{i-s} - u_i l_{i+s}
@@ -25,10 +24,10 @@ cheap rhs phase runs per CG iteration:
     after 2^K >= N every coupling leaves the domain and x = d.
 
 Per application: K levels x (2 shifted multiply-adds + 1 multiply) — about
-3-4 stencil-apply equivalents for N≈1100, against a 6-8x iteration cut.
+3-4 stencil-apply equivalents for N≈1100.
 
 Reference context: the reference solves every step exactly with MUMPS
-(run_no_diamond.py:339-344); this is the TPU-iterative analogue of giving
+(run_no_diamond.py:339-344); this is the iterative analogue of giving
 the Krylov solver the dominant 1D physics exactly.
 """
 
@@ -120,9 +119,8 @@ def pcr_fold(levels, axis: int = -1):
 
     the apply becomes e' = e − l~_k e₋ − u~_k e₊ per level and one final
     x = g_K · e: TWO factor planes per level plus one diagonal plane —
-    exactly the same operator in exact arithmetic (measured f32 deviation
-    actually *smaller* than the 3-plane form on the flagship operator),
-    ~30% less factor traffic per application. Returns
+    exactly the same operator in exact arithmetic, with a third less
+    factor traffic per application. Returns
     ([(l~_k, u~_k), ...], g_K); g_K is None for a zero-level (N=1)
     factorization, where the apply is the identity.
     """
@@ -157,11 +155,10 @@ def adi_preconditioner(A: jnp.ndarray, s: jnp.ndarray, free: jnp.ndarray):
     the subtracted identity removes the doubly-counted unit diagonal).
 
     R and Z are SPD (principal-submatrix block Jacobi of the scaled SPD
-    operator); the split form measured SPD-in-practice on the DAC operator
-    (monotone PCG convergence, benchmarks/expt_adi_probe.py). Flagship
-    iteration cuts vs rline alone: 2.3x on cold solves, 1.6x in the
-    warm-started transient regime — against ~1.4x per-application cost
-    (one extra z-direction PCR rhs phase, no extra operator applies)."""
+    operator); the split form converges monotonically under PCG on the DAC
+    operator. It costs one extra z-direction PCR rhs phase per
+    application (no extra operator applies) for fewer iterations than
+    rline alone, most on cold, deep solves."""
     R = line_preconditioner(A, s, free, axis=-1)
     Z = line_preconditioner(A, s, free, axis=-2)
     fm = free
@@ -194,3 +191,17 @@ def line_preconditioner(A: jnp.ndarray, s: jnp.ndarray, free: jnp.ndarray,
         return pcr_apply_folded(levels2, g, r, axis=axis) * fm
 
     return pre
+
+
+def line_family_preconditioner(kind: str, A: jnp.ndarray, s: jnp.ndarray,
+                               free: jnp.ndarray):
+    """The line preconditioner named ``kind`` on the scaled system:
+    'rline' / 'zline' (one line block-Jacobi solve) or 'adi' (both,
+    split-additively). Any other name (jacobi, mg) gets None — those are
+    built by the caller."""
+    if kind == "adi":
+        return adi_preconditioner(A, s, free)
+    if kind in ("rline", "zline"):
+        return line_preconditioner(A, s, free,
+                                   axis=-1 if kind == "rline" else -2)
+    return None

@@ -1,13 +1,13 @@
 """Grid-overlay operators: unstructured geometry at structured-stencil speed.
 
-TPUs have no vector gather, so the ELL SpMV (ops/ell.py) — correct and fast
-on CPU — runs ~1000× below the stencil path on TPU (measured 17.8 ms/apply
-at 278k nodes). The TPU-native fix: when the mesh *topology* embeds in a 2D
-lattice (node positions may be arbitrarily jittered, diagonals mixed per
-quad, grading arbitrary — only the neighbor graph matters), the exactly
-assembled unstructured operator is a permuted 9-point stencil. This module
-converts assembled EllOps to that form so the whole unstructured feature
-surface runs through shifted multiply-adds (ops/stencil.apply_stencil).
+The ELL SpMV (ops/ell.py) gathers neighbor values by index for every apply.
+When the mesh *topology* embeds in a 2D lattice (node positions may be
+arbitrarily jittered, diagonals mixed per quad, grading arbitrary — only the
+neighbor graph matters), the exactly assembled unstructured operator is a
+permuted 9-point stencil. This module converts assembled EllOps to that form
+so the whole unstructured feature surface runs through shifted multiply-adds
+(ops/stencil.apply_stencil), with no gathers. (Whether the overlay still
+beats ELL on the GPU is not measured.)
 
 Meshes from mesh/unstructured_gen carry the overlay natively; imported
 meshes can carry it as a mesh_overlay.npz sidecar. Arbitrary-topology gmsh
@@ -74,11 +74,3 @@ def ell_to_stencils(ell: EllOps, overlay: dict) -> dict[str, np.ndarray]:
     out["G"] = _vals_to_stencil(ell.cols, ell.G_vals, idx, shape)
     out["Mp"] = _vals_to_stencil(ell.cols, ell.Mp_vals, idx, shape)
     return out
-
-
-def node_to_lattice(vec: np.ndarray, idx: np.ndarray, shape: tuple
-                    ) -> np.ndarray:
-    """Scatter a node-ordered vector onto the lattice (host-side setup)."""
-    out = np.empty(shape[0] * shape[1], dtype=np.asarray(vec).dtype)
-    out[idx] = np.asarray(vec)
-    return out.reshape(shape)

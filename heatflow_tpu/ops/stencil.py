@@ -1,10 +1,10 @@
 """7-point stencil assembly and application on structured meshes.
 
-The TPU-native replacement for sparse-matrix assembly + MUMPS
+The accelerator-side replacement for sparse-matrix assembly + MUMPS
 (ref: run_no_diamond.py:331-344): on a tensor-product triangulated grid, every
 P1 operator has a fixed 7-point sparsity, so ``A @ u`` becomes seven shifted
-elementwise multiply-adds over (Nz, Nr) arrays — pure VPU work with perfect
-XLA fusion, no gather/scatter, and trivial vmap over parameter-sweep batches.
+elementwise multiply-adds over (Nz, Nr) arrays — elementwise work that XLA
+fuses, no gather/scatter, and trivial vmap over parameter-sweep batches.
 
 Stencils are assembled *per material* with unit coefficients, so the operator
 for any (κ_m, ρc_m, dt) combination — e.g. each config of a parameter sweep —
@@ -213,18 +213,20 @@ def material_combine(coeffs: jnp.ndarray, S: jnp.ndarray) -> jnp.ndarray:
 
     The material contraction is tiny (n_mats ≤ ~9) but its output is the
     backward-Euler operator, whose symmetrically-scaled condition number is
-    ~1e6. Expressed as an einsum, XLA:TPU lowers it to an MXU dot_general at
-    DEFAULT precision — bf16-truncated inputs, a ~4e-3 relative perturbation
-    of the operator coefficients — *but only when the coefficients are
-    batched* (B ≥ 2); at B = 1 the degenerate dot simplifies to full-f32
-    multiply-adds. The perturbation pushes the smallest eigenvalues of the
-    scaled operator negative, so CG diverges on every lane of a batched
+    ~1e6. Expressed as an einsum, an accelerator's compiler may lower it to
+    a matrix-unit dot_general at DEFAULT precision — reduced-precision
+    inputs (bf16 or TF32), a ~1e-3 relative perturbation of the operator
+    coefficients — *but only when the coefficients are batched* (B ≥ 2); at
+    B = 1 the degenerate dot simplifies to full-f32 multiply-adds. The
+    perturbation pushes the smallest eigenvalues of the scaled operator
+    negative, so CG diverges on every lane of a batched
     sweep while the identical single config converges (the round-2
     "vmapped full-stepper divergence", root-caused via
     jax.default_matmul_precision('highest') restoring exact B=1/B=2
     iteration parity). An unrolled multiply-add chain is exact in f32 and
-    is also the natively right lowering for a length-5 contraction: pure
-    VPU work, no MXU round-trip.
+    is also the natively right lowering for a length-5 contraction:
+    elementwise work, no matrix-unit round-trip
+    (heatflow_tpu.devicecheck checks the compiled form on the device).
     """
     extra = S.ndim - 1
     def c(i):

@@ -1,11 +1,12 @@
 """Multi-host (DCN) execution of sweep batches.
 
 The reference's only parallelism is a single-machine process pool
-(ref parameter_sweep.py:436-446). Scaling past one host on TPU pods means:
-every host runs the same program (SPMD), jax.distributed wires the hosts
-into one runtime, the global device mesh spans all chips, and the sweep's
-batch axis is sharded over it — configs ride on hosts, nothing crosses DCN
-during the solve except the initial shard placement and the final gather.
+(ref parameter_sweep.py:436-446). Scaling past one host means: every host
+runs the same program (SPMD), jax.distributed wires the hosts into one
+runtime, the global device mesh spans all devices, and the sweep's batch
+axis is sharded over it — configs ride on hosts, nothing crosses the
+inter-host network during the solve except the initial shard placement and
+the final gather.
 
 The same code path runs multi-process on CPU (JAX's distributed runtime is
 backend-agnostic), which is how tests/test_multihost.py exercises a real
@@ -25,8 +26,8 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Join this process into a multi-host JAX runtime.
 
-    On TPU pods all arguments are auto-detected from the environment; for
-    CPU/GPU test rigs pass them explicitly (coordinator 'host:port')."""
+    Pass the arguments explicitly (coordinator 'host:port') unless the
+    cluster environment lets jax.distributed detect them."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)
@@ -65,7 +66,7 @@ def gather_to_all(x) -> np.ndarray:
 def run_sweep_multihost(problem, sample_k, fwhm, *, dtype=None,
                         fixed_iters: int | None = None, rtol: float = 1e-6,
                         maxiter: int = 4000, num_steps: int | None = None,
-                        z_shards: int = 1, solver: str = "xla",
+                        z_shards: int = 1, solver: str = "auto",
                         warm_start: str = "previous",
                         record_gradient: bool = False,
                         rtol_wrt: str = "b", f64_refine: int = 0,
@@ -97,19 +98,18 @@ def run_sweep_multihost(problem, sample_k, fwhm, *, dtype=None,
     fs = pad_to_multiple(fs, nc)
 
     if isinstance(problem, ProblemUnstructured):
-        if num_steps is not None and solver != "vmem":
-            # the unstructured XLA maker has no segment API — silently
+        if num_steps is not None:
+            # the unstructured maker has no segment API — silently
             # running the full transient would break the (B, num_steps, W)
             # shape contract of time-chunked callers
             raise ValueError("num_steps on unstructured multihost sweeps "
-                             "needs solver='vmem' (the segmented overlay "
+                             "is not supported (no segmented unstructured "
                              "engine)")
         fn = make_sweep_fn_unstructured(
             problem, dtype=dtype, fixed_iters=fixed_iters, rtol=rtol,
             maxiter=maxiter, warm_start=warm_start, solver=solver,
             record_gradient=record_gradient, rtol_wrt=rtol_wrt,
-            f64_refine=f64_refine, precondition=precondition,
-            num_steps=num_steps, mesh=mesh)
+            f64_refine=f64_refine, precondition=precondition, mesh=mesh)
         # the jitted cores carry explicit in_shardings, so plain (padded)
         # numpy inputs are placed as global sharded arrays at dispatch
         out = fn(ks, fs)

@@ -1,16 +1,16 @@
 """Multi-chip sharding for sweeps and domain decomposition.
 
 The reference's only real parallelism is a multiprocessing pool over configs
-(ref parameter_sweep.py:436-446). The TPU-native replacements:
+(ref parameter_sweep.py:436-446). The device-mesh replacements:
 
   * **config axis (dp analogue)** — vmapped sweep batches sharded over the
     device mesh's 'config' axis; each chip integrates its shard of configs
     independently; the only collective is the final result gather.
   * **spatial axis (sp analogue)** — the (Nz, Nr) field's z dimension sharded
-    over the 'z' axis; the 7-point stencil's shifted reads become XLA-inserted
-    halo exchanges (collective-permute over ICI) under GSPMD — no manual
-    ghost updates (replacing PETSc ghostUpdate/scatter_forward,
-    ref run_no_diamond.py:538-541).
+    over the 'z' axis; the 7-point stencil's shifted reads become
+    XLA-inserted halo exchanges (collective-permute between devices) under
+    GSPMD — no manual ghost updates (replacing PETSc
+    ghostUpdate/scatter_forward, ref run_no_diamond.py:538-541).
 
 Both compose in a single 2D mesh ('config', 'z').
 """

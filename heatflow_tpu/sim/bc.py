@@ -16,7 +16,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import pandas as pd
 
 DEFAULT_WIDTH = 1e-10
 
@@ -131,21 +130,17 @@ class HeatingCurve:
 
     @classmethod
     def from_csv(cls, path: str) -> "HeatingCurve":
-        df = pd.read_csv(path)
+        from heatflow_tpu.io.csvio import read_numeric_columns
+        cols = read_numeric_columns(path)
         for col in ("time", "temp"):
-            if col not in df.columns:
+            if col not in cols:
                 raise ValueError(
                     f"Heating CSV {path} must contain a '{col}' column")
-        df = (df.assign(time=pd.to_numeric(df["time"], errors="coerce"),
-                        temp=pd.to_numeric(df["temp"], errors="coerce"))
-                .dropna(subset=["time", "temp"])
-                .sort_values("time")
-                .reset_index(drop=True))
-        oside = None
-        if "oside" in df.columns:
-            oside = pd.to_numeric(df["oside"], errors="coerce").to_numpy(float)
-        return cls(time=df["time"].to_numpy(float),
-                   temp=df["temp"].to_numpy(float), oside=oside)
+        keep = ~(np.isnan(cols["time"]) | np.isnan(cols["temp"]))
+        order = np.argsort(cols["time"][keep], kind="quicksort")
+        pick = lambda c: cols[c][keep][order]
+        return cls(time=pick("time"), temp=pick("temp"),
+                   oside=pick("oside") if "oside" in cols else None)
 
     def amplitude_offset(self, ic_temp: float) -> float:
         """offset = temp[0] - ic so heating starts at the initial condition

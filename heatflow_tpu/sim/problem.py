@@ -2,7 +2,7 @@
 
 Everything the hot loop needs is precomputed here once (stencils, masks,
 watcher indices, radial-band bin segments, heating-curve arrays), so the
-scan body is pure array math — the TPU-native analogue of the setup phase of
+scan body is pure array math — the device-side analogue of the setup phase of
 ref run_no_diamond.py:229-513.
 """
 

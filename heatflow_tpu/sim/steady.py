@@ -30,8 +30,8 @@ def solve_steady(problem: Problem2D, bc_values: np.ndarray, *,
 
     ``precondition``: 'adi' (default — steady solves are COLD, the regime
     where the split-additive r-line+z-line composition cuts iterations
-    most: 2.3-4.8x vs rline on the flagship operator,
-    benchmarks/expt_adi_probe.py), 'rline', 'zline', or 'jacobi'."""
+    most: 2.3-4.8x fewer iterations than rline on the flagship
+    operator), 'rline', 'zline', or 'jacobi'."""
     st = problem.stencils
     Ksrc = st.K if weighted else st.K_flat
     from heatflow_tpu.ops.stencil import material_combine

@@ -28,10 +28,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from heatflow_tpu.ops.cg import (CGResult, pcg, pcg_fixed,
-                                 refine_inner_scale, refine_inner_seed)
+from heatflow_tpu.ops.cg import CGResult, pcg, pcg_fixed, refined_solve
+from heatflow_tpu.ops.linesolve import line_family_preconditioner
 from heatflow_tpu.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu.sim.problem import Problem2D
+from heatflow_tpu.utils import resolve_solver
+
+# every preconditioner the XLA engine implements (ops/linesolve.py line
+# solves, ops/multigrid.py RAP V-cycle)
+PRECONDITIONERS = ("jacobi", "rline", "zline", "adi", "mg")
 
 
 @dataclass
@@ -49,6 +54,18 @@ class TransientResult:
     proj_iters: np.ndarray | None     # (S,)
 
 
+def validate_refine(dtype) -> None:
+    """``f64_refine`` is f32 correction solves around an f64 residual: it
+    needs dtype float32 and ``jax_enable_x64`` (without x64 the f64 outer
+    residual silently rounds to f32 and the refinement is a no-op)."""
+    if jnp.dtype(dtype) != jnp.float32:
+        raise ValueError("f64_refine is the mixed-precision mode: dtype "
+                         "must be float32 (the all-f64 path needs no "
+                         "refinement)")
+    if not jax.config.jax_enable_x64:
+        raise ValueError("f64_refine needs jax_enable_x64=True")
+
+
 def make_simulate_fn(problem: Problem2D,
                      *,
                      dtype=jnp.float64,
@@ -61,36 +78,31 @@ def make_simulate_fn(problem: Problem2D,
                      record_fields: bool = False,
                      precondition: str = "jacobi",
                      rtol_wrt: str = "r0",
-                     solver: str = "xla",
-                     vmem_cheb_degree: int = 0,
-                     mgz_sweeps: int = 1,
+                     solver: str = "auto",
                      warm_start: str = "previous",
                      mesh=None,
                      f64_refine: int = 0,
-                     inner_seed: str = "zero",
-                     adaptive_thresh: int = 100) -> Callable:
+                     inner_seed: str = "zero") -> Callable:
     """Build a jittable simulate(kappas, rho_cvs, fwhm) -> dict of traces.
+
+    ``solver``: 'auto' or 'xla' — both name the one XLA engine
+    (:func:`heatflow_tpu.utils.resolve_solver`).
 
     ``f64_refine``: mixed-precision iterative refinement (dtype must be
     float32). Each step's solve becomes N passes of: compute the residual
-    against the **f64** operator (XLA f64 emulation on TPU — one f64
-    stencil apply per pass), solve the f32 correction system to ``rtol``
-    with the configured f32 engine (VMEM/rline at full speed), accumulate
-    the update in f64. The state is carried in f64 across the scan. This
-    breaks the f32 operator-representation trace floor (~0.11 K on the
-    flagship, BENCHMARKS.md): the converged answer is the f64 operator's
-    solution, reached at f32 solve speed plus ~N f64 applies per step —
-    measured 0.007 K peak o-side error at 249 steps/s with
-    ``f64_refine=2, rtol=1e-3`` vs 3.4 steps/s for the all-f64 path.
-    Requires ``jax_enable_x64`` (the f64 outer would silently round
-    otherwise).
+    against the **f64** operator (one f64 stencil apply per pass), solve
+    the f32 correction system to ``rtol`` with the configured f32
+    preconditioner, accumulate the update in f64. The state is carried in
+    f64 across the scan. This breaks the f32 operator-representation trace
+    floor: the converged answer is the f64 operator's solution, reached at
+    f32 solve cost plus ~N f64 applies per step. Requires
+    ``jax_enable_x64`` (the f64 outer would silently round otherwise).
 
     ``mesh``: a ``jax.sharding.Mesh`` with a 'z' axis — shard THIS single
     problem's fields and stencils along z over the devices (GSPMD inserts
-    the halo exchanges at shard boundaries; SURVEY §2.3 item 2's TPU
-    equivalent for problems too big for one chip). Requires Nz divisible
-    by the 'z' axis size and the XLA solver path (the VMEM kernel keeps
-    whole problems on one chip by design).
+    the halo exchanges at shard boundaries; SURVEY §2.3 item 2's
+    equivalent for problems too big for one device). Requires Nz divisible
+    by the 'z' axis size.
 
     All arguments default to the problem's own material values, so
     ``simulate()`` runs the configured problem; passing arrays makes it a
@@ -101,32 +113,15 @@ def make_simulate_fn(problem: Problem2D,
     'extrapolate' seeds with the linear time extrapolation 2·u_n − u_{n−1},
     which halves-or-better the initial residual on smooth transients;
     'extrapolate2' seeds with the quadratic 3·u_n − 3·u_{n−1} + u_{n−2}
-    (one more field in the scan carry; see BENCHMARKS.md for where each
-    order wins). With
+    (one more field in the scan carry). With
     ``rtol_wrt='r0'`` the stop threshold is tied to the (now smaller)
     initial residual, so the same rtol buys strictly better absolute
     accuracy; the speed win comes from loosening rtol back to the matched
-    trace-accuracy point (measured in BENCHMARKS.md).
+    trace-accuracy point.
 
     inner_seed (refined path only): 'zero' starts each pass's correction
-    CG from 0 (official); 'carry' seeds it with the previous step's
-    correction for the same pass — measured dominated by the zero-seed
-    rtol frontier on TPU (BENCHMARKS.md measured-negative #5), kept as a
-    tested option.
-
-    precondition='adaptive' (VMEM path only): per-step rline/adi switch —
-    each step runs the rline kernel unless the PREVIOUS step's iteration
-    count exceeded ``adaptive_thresh``, in which case the step runs the
-    split-additive ADI kernel (both PCR stacks are factored once per
-    transient; lax.cond selects the kernel). Rationale: ADI's z phase
-    pays only on deep solves (the ~1.3x break-even cut, BENCHMARKS.md
-    "ADI regime map"), which cluster at the cold start and heating-curve
-    kinks where the previous step's count is an accurate one-step-lagged
-    depth predictor. Threshold default 100: the interleaved flagship
-    A/B measured 608-614 steps/s at 100 vs 597.7 at 150 vs 582.3 for
-    static rline and 554.6 for static adi (round 4, BENCHMARKS.md
-    "adaptive rline/adi switch") — the round-3 verdict's stretch item,
-    promoted to the official bench recipe.
+    CG from 0 (the default); 'carry' seeds it with the previous step's
+    correction for the same pass.
 
     Memoized per problem (problem.extras) keyed by every argument: repeated
     calls with identical parameters return the same compiled callable
@@ -141,34 +136,23 @@ def make_simulate_fn(problem: Problem2D,
         raise ValueError(f"unknown inner_seed {inner_seed!r}")
     if not f64_refine:
         inner_seed = "zero"  # only meaningful for the refined inner solves
+    solver = resolve_solver(solver)
     cache_key = ("simulate_fn", jnp.dtype(dtype).name, rtol, maxiter,
                  fixed_iters, proj_rtol, proj_maxiter, record_gradient,
                  record_fields, precondition, rtol_wrt, solver,
-                 vmem_cheb_degree, warm_start, mesh, f64_refine, inner_seed,
-                 adaptive_thresh if precondition == "adaptive" else None,
-                 mgz_sweeps if precondition == "mgz" else None)
+                 warm_start, mesh, f64_refine, inner_seed)
     cache = problem.extras.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
     if warm_start not in ("previous", "extrapolate", "extrapolate2"):
         raise ValueError(f"unknown warm_start {warm_start!r}")
-    if precondition not in ("jacobi", "mg", "rline", "zline", "adi",
-                            "adaptive", "mgz"):
+    if precondition not in PRECONDITIONERS:
         raise ValueError(f"unknown precondition {precondition!r}")
     if f64_refine:
-        if jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("f64_refine is the mixed-precision mode: "
-                             "dtype must be float32 (the all-f64 path needs "
-                             "no refinement)")
-        if not jax.config.jax_enable_x64:
-            raise ValueError("f64_refine needs jax_enable_x64=True — "
-                             "without it the f64 outer residual silently "
-                             "rounds to f32 and the refinement is a no-op")
-        if fixed_iters is not None or vmem_cheb_degree or mesh is not None \
-                or precondition == "mg":
+        validate_refine(dtype)
+        if fixed_iters is not None or mesh is not None:
             raise ValueError("f64_refine composes with the tolerance-based "
-                             "jacobi/line (rline/zline/adi) solvers on one "
-                             "chip (no fixed_iters / cheb / mg / mesh)")
+                             "solves on one device (no fixed_iters / mesh)")
     # state/operator compute dtype: f64 when refining, else the run dtype
     cdt = jnp.float64 if f64_refine else dtype
     dev = problem.device_arrays(cdt)
@@ -180,73 +164,12 @@ def make_simulate_fn(problem: Problem2D,
     has_radial = problem.radial is not None and record_gradient
     n_bins = len(problem.radial.bin_counts) if has_radial else 0
 
-    use_vmem = False
-    if solver in ("vmem", "auto"):
-        from heatflow_tpu.ops.pallas_cg import (adi_extra_planes,
-                                                fits_in_vmem,
-                                                rline_extra_planes)
-        from heatflow_tpu.ops.pallas_cg import mgz_extra_planes
-        extra = (rline_extra_planes(nr) if precondition == "rline"
-                 else adi_extra_planes(nz, nr)
-                 if precondition in ("adi", "adaptive")
-                 else mgz_extra_planes(nz, nr, mgz_sweeps)
-                 if precondition == "mgz"
-                 else 0)
-        use_vmem = fits_in_vmem(nz, nr, dtype, extra_planes=extra)
-    if solver == "vmem" and not use_vmem:
-        raise ValueError(
-            f"problem ({nz}x{nr}, {dtype}) exceeds the VMEM budget; "
-            "use solver='xla'")
-    if solver == "auto" and (jax.default_backend() != "tpu"
-                             or jnp.dtype(dtype) != jnp.float32):
-        use_vmem = False  # the Pallas kernel is TPU-only, f32-only
     if mesh is not None:
-        # z-sharding resolves 'auto' to the XLA path — BEFORE the
-        # vmem-only preconditioner validations below, so adaptive/mgz
-        # under z-sharding get their clean ValueError instead of slipping
-        # through with a stale use_vmem=True (round-5 review finding)
-        if solver == "vmem":
-            raise ValueError("z-sharding a single problem runs the XLA "
-                             "solver path (the VMEM kernel keeps whole "
-                             "problems on one chip); use solver='xla'")
-        use_vmem = False  # 'auto' under z-sharding resolves to XLA
         if "z" not in mesh.axis_names:
             raise ValueError("make_simulate_fn(mesh=...) needs a 'z' axis")
         if nz % mesh.shape["z"] != 0:
             raise ValueError(f"Nz={nz} not divisible by the 'z' axis size "
                              f"{mesh.shape['z']}")
-    if use_vmem and precondition in ("zline", "mg"):
-        # only 'rline' has an in-kernel PCR; the VMEM solve would silently
-        # drop a zline/mg preconditioner — route them to the XLA path
-        if solver == "vmem":
-            raise ValueError(f"precondition={precondition!r} is not "
-                             "available in the VMEM kernel (only 'rline' "
-                             "has an in-kernel PCR); use solver='xla'")
-        use_vmem = False
-    if precondition == "adaptive" and vmem_cheb_degree:
-        # the lax.cond rline/adi branches run the plain (non-Chebyshev)
-        # kernels — a cheb degree would be silently dropped (same class of
-        # validation as the zline/mg rejection above)
-        raise ValueError("vmem_cheb_degree is not available with "
-                         "precondition='adaptive' (the per-step rline/adi "
-                         "branches run the plain kernels); use a static "
-                         "precondition with cheb, or drop the degree")
-    if precondition == "adaptive" and not use_vmem:
-        # the per-step rline/adi switch exists only as the two VMEM kernel
-        # variants under lax.cond — there is no XLA fallback to silently
-        # degrade to
-        raise ValueError("precondition='adaptive' (per-step rline/adi "
-                         "switch) requires the VMEM solver path (TPU f32 "
-                         "within the VMEM budget, or interpret-mode tests)")
-    if precondition == "mgz":
-        if not use_vmem:
-            raise ValueError("precondition='mgz' (in-kernel z-semicoarsened "
-                             "MG over the rline smoother) requires the VMEM "
-                             "solver path (TPU f32 within the VMEM budget, "
-                             "or interpret-mode tests)")
-        if vmem_cheb_degree:
-            raise ValueError("vmem_cheb_degree does not compose with "
-                             "precondition='mgz'")
     mg_host = None
     mg_shapes = None
     if precondition == "mg":
@@ -258,25 +181,6 @@ def make_simulate_fn(problem: Problem2D,
         # pytree (they must not become tracers)
         mg_shapes = [lv.pop("shape") for lv in full]
         mg_host = full
-    elif precondition == "mgz":
-        # z-semicoarsened MG operands, built ONCE at maker time with scipy
-        # RAP from the problem's DEFAULT coefficients (the same maker-time
-        # convention as ops/multigrid.build_hierarchy) and threaded through
-        # the mg_host jit-argument slot. simulate() therefore rejects
-        # runtime kappa/rho_cv overrides under 'mgz' — the baked coarse
-        # operator would silently mismatch the solved system's.
-        from heatflow_tpu.ops.mgz import mgz_pack
-        st = problem.stencils
-        A7_np = (np.einsum("m,mkij->kij", problem.rho_cvs, st.M)
-                 + float(problem.dt)
-                 * np.einsum("m,mkij->kij", problem.kappas, st.K))
-        free_np = np.asarray(problem.free_mask, np.float64)
-        diag_np = A7_np[0]
-        s_np = np.where(free_np > 0,
-                        1.0 / np.sqrt(np.where(diag_np > 0, diag_np, 1.0)),
-                        1.0)
-        mg_host = {k: jnp.asarray(v) for k, v in
-                   mgz_pack(A7_np, s_np, free_np, dtype).items()}
 
     field_sh = None
     if mesh is not None:
@@ -341,53 +245,31 @@ def make_simulate_fn(problem: Problem2D,
             + dirich
         apply_A_s = lambda y: s * apply_stencil(A, s * y)
 
-        sm_vmem = s * free if use_vmem else None
-
-        pre = None
-        pcr_stack = None
-        pcr_z_stack = None
-        if precondition == "adaptive" and not f64_refine:
-            # both stacks resident; the per-step switch picks which rhs
-            # phases run (pcr_z only on deep solves — see the step fn)
-            from heatflow_tpu.ops.pallas_cg import pcr_pack
-            pcr_stack = pcr_pack(A, s, free)
-            pcr_z_stack = pcr_pack(A, s, free, axis=-2)
-        if precondition == "mgz" and not f64_refine:
-            # fine r-line stack = the V-cycle's smoother; the coarse/
-            # transfer operands arrive pre-built via mg_levels (maker-time
-            # scipy RAP from the problem's default coefficients)
-            from heatflow_tpu.ops.pallas_cg import pcr_pack
-            pcr_stack = pcr_pack(A, s, free)
-        if precondition in ("rline", "zline", "adi") and not f64_refine:
-            # line block-Jacobi on the scaled system via precomputed PCR
-            # (the operator is constant over the transient, so the
-            # factorization runs once, outside the scan; each application
-            # is ~log2(N) shifted multiply-add passes).  'rline' is the
-            # measured winner on the DAC operator; 'adi' adds the z-line
-            # solve split-additively (R r + Z r − r) — see ops/linesolve.py.
-            if use_vmem and precondition in ("rline", "adi"):
-                from heatflow_tpu.ops.pallas_cg import pcr_pack
-                pcr_stack = pcr_pack(A, s, free)
-                if precondition == "adi":
-                    pcr_z_stack = pcr_pack(A, s, free, axis=-2)
-            elif precondition == "adi":
-                from heatflow_tpu.ops.linesolve import adi_preconditioner
-                pre = adi_preconditioner(A, s, free)
-            else:
-                from heatflow_tpu.ops.linesolve import line_preconditioner
-                pre = line_preconditioner(
-                    A, s, free, axis=-1 if precondition == "rline" else -2)
-        if precondition == "mg" and mg_levels is not None:
+        def preconditioner(A, s, free, pdt):
+            """The configured preconditioner of the scaled system at
+            precision ``pdt`` (None for jacobi: the scaling is the Jacobi
+            step)."""
+            if precondition != "mg":
+                # line block-Jacobi via precomputed PCR (the operator is
+                # constant over the transient, so the factorization runs
+                # once, outside the scan; each application is ~log2(N)
+                # shifted multiply-add passes). 'adi' adds the z-line
+                # solve split-additively (R r + Z r − r) — see
+                # ops/linesolve.py.
+                return line_family_preconditioner(precondition, A, s, free)
             from heatflow_tpu.ops.multigrid import make_vcycle
             level_ops = []
             for lv, shp in zip(mg_levels, mg_shapes):
-                A_l, _ = combine_operator(lv["K"], lv["M"], kp, rc, dt)
+                A_l, _ = combine_operator(lv["K"], lv["M"], kp.astype(pdt),
+                                          rc.astype(pdt), dt.astype(pdt))
                 level_ops.append({**lv, "A": A_l, "shape": shp})
             vcycle = make_vcycle(level_ops)
             inv_s = 1.0 / jnp.where(s > 0, s, 1.0)
             # V-cycle approximates A⁻¹; conjugate it into the scaled system:
             # precond(r̃) = S⁻¹ (vcycle(S⁻¹ r̃))
-            pre = lambda r: inv_s * vcycle(inv_s * r)
+            return lambda r: inv_s * vcycle(inv_s * r)
+
+        pre = None if f64_refine else preconditioner(A, s, free, cdt)
 
         coeff = jnp.asarray(-4.0 * np.log(2.0), cdt) / (fw * fw)
         profile = jnp.exp(coeff * r_sq) * base  # Gaussian on the heating line
@@ -412,30 +294,13 @@ def make_simulate_fn(problem: Problem2D,
 
         # mixed-precision refinement: f32 casts of the scaled system for the
         # inner correction solves (the f64 master operator computes only the
-        # per-pass residual — one emulated-f64 stencil apply each)
+        # per-pass residual — one f64 stencil apply each)
         if f64_refine:
             A32 = A.astype(dtype)
             s32 = s.astype(dtype)
             free32 = free.astype(dtype)
-            sm32 = (s * free).astype(dtype)
             apply_A32_s = lambda y: s32 * apply_stencil(A32, s32 * y)
-            pre32 = None
-            pcr_stack32 = None
-            pcr_z_stack32 = None
-            if use_vmem and precondition in ("rline", "adi", "adaptive",
-                                             "mgz"):
-                from heatflow_tpu.ops.pallas_cg import pcr_pack
-                pcr_stack32 = pcr_pack(A32, s32, free32)
-                if precondition in ("adi", "adaptive"):
-                    pcr_z_stack32 = pcr_pack(A32, s32, free32, axis=-2)
-            elif precondition == "adi":
-                from heatflow_tpu.ops.linesolve import adi_preconditioner
-                pre32 = adi_preconditioner(A32, s32, free32)
-            elif precondition in ("rline", "zline"):
-                from heatflow_tpu.ops.linesolve import line_preconditioner
-                pre32 = line_preconditioner(
-                    A32, s32, free32,
-                    axis=-1 if precondition == "rline" else -2)
+            pre32 = preconditioner(A32, s32, free32, dtype)
             s_mp32 = s_mp.astype(dtype)
             G_r32 = G_r.astype(dtype)
             M_proj32 = M_proj.astype(dtype)
@@ -443,92 +308,7 @@ def make_simulate_fn(problem: Problem2D,
                                                             s_mp32 * y)
 
         carry_inner = inner_seed == "carry"
-
-        def _solve_refined(b_lift, y0, dys, use_adi=None):
-            """N passes of f64-residual / f32-correction iterative
-            refinement on the scaled system (see the f64_refine doc).
-
-            ``dys``: (N, nz, nr) f32 — the previous step's per-pass
-            corrections, used as the inner CG seeds when
-            ``inner_seed='carry'``. The inner rhs is unit-normalized, so
-            each carried correction is already on the right scale.
-            Measured on TPU (BENCHMARKS.md measured-negative #5): the
-            carried seed strips the fast-converging high-frequency
-            residual content, leaving a low-mode-dominated residual the
-            inner CG reduces more slowly — more accuracy than requested
-            at more cost, dominated by simply tightening rtol with the
-            zero seed. Kept as a tested option; 'zero' is official."""
-            from heatflow_tpu.ops.pallas_cg import cg_vmem_tol
-            bt = b_lift * free
-            # Inner stop floor: once the f64 residual is at f64 roundoff
-            # relative to the step's full rhs there is nothing left to
-            # correct — and the f32 target rtol²·‖r‖² would underflow to
-            # denormals, leaving the inner CG grinding on noise until
-            # maxiter (measured: 18k iterations then poisoning on a
-            # warm-start-exact early step).
-            floor2 = jnp.asarray(1e-30, cdt) * jnp.sum(bt * bt)
-            y = y0
-            iters = jnp.zeros((), jnp.int32)
-            z32 = jnp.zeros((nz, nr), dtype)
-            new_dys = []
-            for i in range(f64_refine):
-                r64 = bt - free * apply_A_s(y)
-                rn2 = jnp.sum(r64 * r64)
-                # unit-norm rhs + degenerate stop (ops.cg.refine_inner_scale)
-                rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
-                                                     dtype)
-                r32 = (r64 / rnorm).astype(dtype)
-                # a carried seed must be zeroed on degenerate passes — the
-                # rtol_eff=2 early stop assumes the solve starts AT the rhs
-                # residual (ops.cg.refine_inner_seed)
-                seed = refine_inner_seed(dys[i], rtol_eff) if carry_inner \
-                    else z32
-                if use_vmem and use_adi is not None:
-                    # per-step rline/adi switch: both kernel variants are
-                    # compiled once; deep solves (previous step's inner
-                    # iterations above the threshold) run the ADI kernel,
-                    # shallow ones the cheaper rline kernel
-                    dy, its = jax.lax.cond(
-                        use_adi,
-                        lambda: cg_vmem_tol(A32, sm32, r32, seed, rtol_eff,
-                                            maxiter=maxiter, rtol_wrt="b",
-                                            pcr=pcr_stack32,
-                                            pcr_z=pcr_z_stack32),
-                        lambda: cg_vmem_tol(A32, sm32, r32, seed, rtol_eff,
-                                            maxiter=maxiter, rtol_wrt="b",
-                                            pcr=pcr_stack32))
-                elif use_vmem:
-                    dy, its = cg_vmem_tol(A32, sm32, r32, seed, rtol_eff,
-                                          maxiter=maxiter, rtol_wrt="b",
-                                          pcr=pcr_stack32,
-                                          pcr_z=pcr_z_stack32,
-                                          mgz=(mg_levels
-                                               if precondition == "mgz"
-                                               else None),
-                                          mgz_sweeps=mgz_sweeps)
-                else:
-                    dsol = pcg(apply_A32_s, r32, seed, precond=pre32,
-                               mask=free32, rtol=rtol_eff, maxiter=maxiter,
-                               rtol_wrt="b")
-                    dy, its = dsol.x, dsol.iters
-                new_dys.append(dy)
-                y = y + dy.astype(cdt) * rnorm
-                iters = iters + its
-            return CGResult(x=y, iters=iters,
-                            residual=jnp.zeros((), cdt),
-                            converged=jnp.asarray(True)), \
-                jnp.stack(new_dys)
-
-        adaptive = precondition == "adaptive"
-
         def step(carry, t):
-            use_adi = None
-            if adaptive:
-                # deep-solve detector with one step of hysteresis: the
-                # previous step's iteration count is the best free
-                # predictor of this step's depth (smooth transients)
-                carry, it_prev = carry[:-1], carry[-1]
-                use_adi = it_prev > adaptive_thresh
             if carry_inner:
                 carry, dys_prev = carry[:-1], carry[-1]
             if order2:
@@ -549,37 +329,18 @@ def make_simulate_fn(problem: Problem2D,
                 u_seed = u_prev
             y0 = (u_seed / jnp.where(s > 0, s, 1.0)) * free
             if f64_refine:
-                sol, dys = _solve_refined(
-                    b_lift, y0,
-                    dys_prev if carry_inner else
-                    jnp.zeros((f64_refine, nz, nr), dtype), use_adi)
-            elif use_vmem:
-                from heatflow_tpu.ops.pallas_cg import cg_vmem_tol
-                if adaptive:
-                    x, iters = jax.lax.cond(
-                        use_adi,
-                        lambda: cg_vmem_tol(A, sm_vmem, b_lift * free, y0,
-                                            rtol, maxiter=maxiter,
-                                            rtol_wrt=rtol_wrt,
-                                            pcr=pcr_stack,
-                                            pcr_z=pcr_z_stack),
-                        lambda: cg_vmem_tol(A, sm_vmem, b_lift * free, y0,
-                                            rtol, maxiter=maxiter,
-                                            rtol_wrt=rtol_wrt,
-                                            pcr=pcr_stack))
-                else:
-                    x, iters = cg_vmem_tol(A, sm_vmem, b_lift * free, y0,
-                                           rtol, maxiter=maxiter,
-                                           rtol_wrt=rtol_wrt,
-                                           cheb_degree=vmem_cheb_degree,
-                                           pcr=pcr_stack,
-                                           pcr_z=pcr_z_stack,
-                                           mgz=(mg_levels
-                                                if precondition == "mgz"
-                                                else None),
-                                           mgz_sweeps=mgz_sweeps)
-                sol = CGResult(x=x, iters=iters,
-                               residual=jnp.zeros((), dtype),
+                # 'carry' seeds each pass with the previous step's
+                # correction; the carried seed strips the fast-converging
+                # high-frequency residual content, leaving a low-mode
+                # residual the inner CG reduces more slowly — 'zero' is
+                # the default
+                y, iters, dys = refined_solve(
+                    apply_A_s, apply_A32_s, b_lift * free, y0, free,
+                    passes=f64_refine, rtol=rtol, maxiter=maxiter,
+                    dtype=dtype, precond=pre32,
+                    seeds=dys_prev if carry_inner else None)
+                sol = CGResult(x=y, iters=iters,
+                               residual=jnp.zeros((), cdt),
                                converged=jnp.asarray(True))
             elif fixed_iters is not None:
                 sol = pcg_fixed(apply_A_s, b_lift, y0, precond=pre,
@@ -595,8 +356,8 @@ def make_simulate_fn(problem: Problem2D,
             if has_radial:
                 # projection seed rides the same warm-start knob as the
                 # solve: the gradient field evolves as smoothly in time
-                # as u, so its linear extrapolation halves the per-step
-                # projection iterations (measured, BENCHMARKS.md)
+                # as u, so its extrapolation cuts the per-step projection
+                # iterations
                 if order2:
                     gr_seed = 3.0 * (gr_prev - gr_pp) + gr_ppp
                 elif extrapolate:
@@ -630,8 +391,6 @@ def make_simulate_fn(problem: Problem2D,
                 else (u, u_prev, gr, gr_prev)
             if carry_inner:
                 new_carry = new_carry + (dys,)
-            if adaptive:
-                new_carry = new_carry + (sol.iters,)
             return new_carry, outs
 
         gr0 = jnp.zeros((nz, nr), dtype)
@@ -640,10 +399,6 @@ def make_simulate_fn(problem: Problem2D,
             else (u0, u0, gr0, gr0)
         if carry_inner:
             init = init + (jnp.zeros((f64_refine, nz, nr), dtype),)
-        if adaptive:
-            # seed above any threshold: the first (cold) step is the
-            # deepest solve of the transient — start on the ADI kernel
-            init = init + (jnp.asarray(maxiter, jnp.int32),)
         carry_fin, ys = jax.lax.scan(step, init, ts)
         ys["final_u"] = carry_fin[0]
         ys["times"] = ts
@@ -653,13 +408,6 @@ def make_simulate_fn(problem: Problem2D,
 
     def simulate(kappas=None, rho_cvs=None, fwhm=None, u0=None, t0=0.0,
                  source=None):
-        if precondition == "mgz" and (kappas is not None
-                                      or rho_cvs is not None):
-            raise ValueError(
-                "precondition='mgz' bakes the coarse operator from the "
-                "problem's default coefficients at maker time; per-call "
-                "kappa/rho_cv overrides would silently mismatch it — use "
-                "'rline'/'adi'/'adaptive' for coefficient sweeps")
         kp = dev["kappas"] if kappas is None else jnp.asarray(kappas, cdt)
         rc = dev["rho_cvs"] if rho_cvs is None else jnp.asarray(rho_cvs,
                                                                cdt)

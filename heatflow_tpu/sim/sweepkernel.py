@@ -1,4 +1,4 @@
-"""Batched sweep kernel: thousands of transient runs per chip via vmap.
+"""Batched sweep kernel: thousands of transient runs per device via vmap.
 
 The reference runs sweeps as a multiprocessing pool of full processes, one
 config at a time (ref parameter_sweep.py:436-446, sweep_test.py:104-107).
@@ -21,208 +21,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from heatflow_tpu.ops.cg import (pcg_fixed, pcg_solve,
-                                 refine_inner_scale)
+from heatflow_tpu.ops.cg import pcg_fixed, pcg_solve, refined_solve
+from heatflow_tpu.ops.linesolve import line_family_preconditioner
 from heatflow_tpu.ops.stencil import apply_stencil, combine_operator
 from heatflow_tpu.sim.problem import Problem2D
-
-
-def vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, *, dtype, ic, dt,
-                    num_steps, base_k, fixed_iters, rtol, maxiter,
-                    extrapolate, rline=False, adi=False, rtol_wrt="b",
-                    f64_refine=0, record=None, proj_rtol=1e-11,
-                    proj_maxiter=400, adaptive=False,
-                    adaptive_thresh=100):
-    """Whole-batch backward-Euler scan with the per-config Pallas VMEM
-    solvers (shared by the structured sweep engine and the grid-overlay
-    unstructured one). ``ops`` needs stencils A0/K_var/M_op (7- or 9-point,
-    lattice layout), masks free/dirich, r_sq, heating-line ``base``, the
-    heating curve heat_t/heat_T, and flat watcher ids ``watch``. ``u_pp``
-    is the u_{n-1} warm-start history entering the segment (pass u0 for a
-    fresh start); ``step0`` the integer step offset of the segment.
-    Returns (traces (B, S, W), u_fin, u_penultimate) — the last two
-    fields re-enter the next time chunk so chunked 'extrapolate' runs are
-    exactly the unchunked trajectory.
-
-    ``f64_refine=N``: mixed-precision iterative refinement, the sweep twin
-    of ``stepper.make_simulate_fn(f64_refine=N)`` — ``ops`` must then hold
-    f64 arrays; each step runs N passes of f64-operator residual (one
-    batched emulated-f64 stencil apply) around the f32 batched VMEM
-    correction solve, carrying the fields in f64. Breaks the f32
-    operator-representation floor per sweep lane.
-
-    ``adaptive``: per-config, per-step rline/adi switch — the batched twin
-    of ``stepper.make_simulate_fn(precondition='adaptive')``: a lane whose
-    PREVIOUS step exceeded ``adaptive_thresh`` CG iterations runs this
-    step's solve with the split-additive ADI composition (both line
-    stacks factored in-kernel for that lane only), shallow lanes the
-    plain r-line solve. The per-lane iteration counts thread through the
-    scan carry, initialized to ``maxiter`` (every lane's first step runs
-    ADI — the cold start IS the deep solve; under time-chunked execution
-    this re-initialization happens at every chunk start — see
-    run_sweep_time_chunked's docstring). Mutually exclusive with
-    ``rline``/``adi``.
-
-    ``record``: artifact-parity recording at VMEM speed — a dict with the
-    lattice projection stencils ``Mp``/``Gr``, scaling plane ``s_mp``,
-    and flat ``band_nodes``/``band_bins``/``bin_counts`` (stopping set by
-    the static ``proj_rtol``/``proj_maxiter``). Each step then also
-    solves the scaled
-    r-weighted mass projection for every lane THROUGH THE SAME batched
-    VMEM kernel (warm-started from the previous step's gradient) and the
-    scan returns a dict {watch, band, axis} instead of bare traces, plus
-    the gradient field threaded as a third carry/return component
-    (ref run_no_diamond.py:544-566's per-step projection, vmapped)."""
-    from heatflow_tpu.ops.pallas_cg import (cg_vmem_batched,
-                                            cg_vmem_batched_tol)
-    interpret = jax.default_backend() != "tpu"
-    cdt = jnp.float64 if f64_refine else dtype
-    free, dirich = ops["free"], ops["dirich"]
-    dks = (jnp.asarray(ks, cdt) - base_k) * dt
-    diag = ops["A0"][0][None] + dks[:, None, None] * ops["K_var"][0][None]
-    s = jax.lax.rsqrt(jnp.where(diag > 0, diag, 1.0)) * free + dirich
-    sm = s * free
-    amp_offset = ops["heat_T"][0] - ic
-    coeff = jnp.asarray(-4.0 * np.log(2.0), cdt) \
-        / (jnp.asarray(fs, cdt) ** 2)
-    profiles = jnp.exp(coeff[:, None, None] * ops["r_sq"][None]) \
-        * ops["base"][None]
-    apply_Ab = jax.vmap(lambda dk, v: apply_stencil(ops["A0"], v)
-                        + dk * apply_stencil(ops["K_var"], v))
-    apply_Mb = jax.vmap(lambda v: apply_stencil(ops["M_op"], v))
-
-    # the Dirichlet lift is affine in the interpolated amplitude:
-    # g(t) = g0 + amp(t)·g1, so A g is precomputed ONCE per scan (two
-    # batched applies) instead of twice per step — exact, not approximate
-    g0 = ic * (dirich - profiles)
-    g1 = profiles
-    Ag0 = apply_Ab(dks, g0)
-    Ag1 = apply_Ab(dks, g1)
-
-    if f64_refine:
-        # f32 casts of the scaled system for the inner correction solves
-        # (the f64 master operator computes only the per-pass residuals)
-        A0_32 = ops["A0"].astype(dtype)
-        Kv_32 = ops["K_var"].astype(dtype)
-        dks_32 = dks.astype(dtype)
-        sm_32 = sm.astype(dtype)
-
-    B = len(jnp.asarray(ks))
-    if record is not None:
-        # projection runs at the kernel dtype (f32 under refine — the
-        # scaled mass solve is well-conditioned, stepper.py rationale)
-        Mp = record["Mp"].astype(dtype)
-        Gr = record["Gr"].astype(dtype)
-        s_mp = record["s_mp"].astype(dtype)
-        dks_z = jnp.zeros((B,), dtype)   # unused by the Kv-free kernel
-        smp_b = jnp.broadcast_to(s_mp[None], (B,) + s_mp.shape)
-        apply_Grb = jax.vmap(lambda v: apply_stencil(Gr, v))
-        n_bins = len(record["bin_counts"])
-
-    if adaptive and (rline or adi):
-        raise ValueError("adaptive replaces the static rline/adi flags")
-    if adaptive and fixed_iters is not None:
-        raise ValueError("the adaptive switch is tolerance-based "
-                         "(iteration counts drive it); drop fixed_iters")
-
-    def step(carry, t):
-        it_prev = None
-        if adaptive:
-            carry, it_prev = carry[:-1], carry[-1]
-        if record is not None:
-            U, U_pp, GR, GR_pp = carry
-        else:
-            U, U_pp = carry
-        flags = (it_prev > adaptive_thresh).astype(jnp.int32) \
-            if adaptive else None
-        amp = jnp.interp(t, ops["heat_t"], ops["heat_T"]) - amp_offset
-        G = g0 + amp * g1
-        Bv = (apply_Mb(U) - (Ag0 + amp * Ag1)) * sm
-        seed = 2.0 * U - U_pp if extrapolate else U
-        Y0 = seed / s * free
-        if f64_refine:
-            # Inner stop floor per lane: once the f64 residual is at f64
-            # roundoff relative to this step's rhs there is nothing left
-            # to correct — rtol_eff=2 stops that lane at its first check
-            # (see stepper._solve_refined for the single-problem analysis)
-            floor2 = jnp.asarray(1e-30, cdt) * jnp.sum(Bv * Bv,
-                                                       axis=(1, 2))
-            Y = Y0
-            Z0 = jnp.zeros(Bv.shape, dtype)
-            it_new = it_prev
-            for _ in range(f64_refine):
-                R = Bv - sm * apply_Ab(dks, sm * Y)
-                rn2 = jnp.sum(R * R, axis=(1, 2))
-                # unit-norm rhs per lane + degenerate-lane stop (see
-                # ops.cg.refine_inner_scale for the underflow analysis)
-                rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
-                                                     dtype)
-                dY, _its = cg_vmem_batched_tol(
-                    A0_32, Kv_32, dks_32, sm_32,
-                    (R / rnorm[:, None, None]).astype(dtype), Z0,
-                    rtol_eff, maxiter=maxiter, interpret=interpret,
-                    rline=rline, adi=adi, rtol_wrt="b",
-                    adi_flags=flags)
-                Y = Y + dY.astype(cdt) * rnorm[:, None, None]
-                it_new = _its   # last inner pass drives next step's switch
-            X = Y
-        elif fixed_iters is not None:
-            X = cg_vmem_batched(ops["A0"], ops["K_var"], dks, sm, Bv, Y0,
-                                iters=fixed_iters, interpret=interpret)
-        else:
-            X, _it = cg_vmem_batched_tol(
-                ops["A0"], ops["K_var"], dks, sm, Bv, Y0, rtol,
-                maxiter=maxiter, interpret=interpret, rline=rline,
-                adi=adi, rtol_wrt=rtol_wrt, adi_flags=flags)
-            it_new = _it
-        Un = X * sm + G
-        watch = Un.reshape(Un.shape[0], -1)[:, ops["watch"]]
-        if record is None:
-            return ((Un, U, it_new) if adaptive else (Un, U)), watch
-        # per-step r-weighted L2 gradient projection, every lane through
-        # the batched VMEM kernel — seeded from the previous gradient, or
-        # its linear time extrapolation under warm_start='extrapolate'
-        # (the gradient field evolves as smoothly as u; measured ~2x
-        # fewer projection iterations, BENCHMARKS.md)
-        br = s_mp[None] * apply_Grb(Un.astype(dtype))
-        GR_seed = 2.0 * GR - GR_pp if extrapolate else GR
-        Y0p = GR_seed / s_mp[None]
-        # Kv=None: the mass projection has no varying-coefficient term —
-        # the kernel drops the operand instead of streaming zero planes
-        Xp, _pits = cg_vmem_batched_tol(
-            Mp, None, dks_z, smp_b, br, Y0p, proj_rtol,
-            maxiter=proj_maxiter, interpret=interpret, rtol_wrt="b")
-        gr = Xp * s_mp[None]
-        vals = gr.reshape(gr.shape[0], -1)[:, record["band_nodes"]]
-        sums = jax.vmap(
-            lambda v: jax.ops.segment_sum(v, record["band_bins"],
-                                          num_segments=n_bins))(vals)
-        outs = {"watch": watch,
-                "band": sums / record["bin_counts"],
-                "axis": gr.reshape(gr.shape[0], -1)[:,
-                                                    record["axis_nodes"]]}
-        return ((Un, U, gr, GR, it_new) if adaptive
-                else (Un, U, gr, GR)), outs
-
-    # times formed as (step0 + i)·dt in ONE rounding so a chunked run's
-    # absolute times are bitwise those of the unchunked scan (adding
-    # t0 = step0·dt separately rounds twice and the 1-ulp difference is
-    # amplified by the gain-2 extrapolated seed — measured)
-    ts = (jnp.arange(1, num_steps + 1, dtype=cdt)
-          + jnp.asarray(step0, cdt)) * dt
-    u00 = jnp.asarray(u0, cdt)
-    # adaptive carry init: every lane 'deep' — the cold start is the one
-    # guaranteed-deep solve (same convention as the single-problem switch)
-    it0 = (jnp.full((B,), maxiter, jnp.int32),) if adaptive else ()
-    if record is not None:
-        gr0 = jnp.zeros((B,) + s_mp.shape, dtype)
-        (u_fin, u_pen, _gr_fin, _gr_pen, *_its), outs = jax.lax.scan(
-            step, (u00, jnp.asarray(u_pp, cdt), gr0, gr0) + it0, ts)
-        outs = {k: jnp.swapaxes(v, 0, 1) for k, v in outs.items()}
-        return outs, u_fin, u_pen
-    (u_fin, u_pen, *_its), traces = jax.lax.scan(
-        step, (u00, jnp.asarray(u_pp, cdt)) + it0, ts)
-    return jnp.swapaxes(traces, 0, 1), u_fin, u_pen
+from heatflow_tpu.sim.stepper import PRECONDITIONERS, validate_refine
+from heatflow_tpu.utils import resolve_solver
 
 
 def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
@@ -230,67 +34,57 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                   maxiter: int = 4000, fixed_iters: int | None = None,
                   precondition: str = "jacobi",
                   num_steps: int | None = None, mesh=None,
-                  solver: str = "xla", warm_start: str = "previous",
+                  solver: str = "auto", warm_start: str = "previous",
                   rtol_wrt: str = "b", f64_refine: int = 0):
     """Build simulate_batch(sample_k (B,), fwhm (B,)) -> watcher traces
-    (B, S, W). vmappable/shardable along B; differentiable in both inputs.
+    (B, S, W). vmappable/shardable along B; differentiable in both inputs
+    (except under ``f64_refine``).
 
     ``simulate_batch.segment(ks, fs, u0, step0, u_pp=None)`` additionally
     returns the final and penultimate fields, enabling time-chunked
-    execution of very large batches (bounded device-call durations) with
-    exact warm-start history across chunks — set ``num_steps`` to the
-    chunk length.
+    execution of very large batches with exact warm-start history across
+    chunks — set ``num_steps`` to the chunk length.
 
     ``mesh``: a ``jax.sharding.Mesh`` with a 'config' axis (and optionally a
     'z' axis, see parallel.config_mesh). The batch axis is sharded over
     'config' — each device integrates its shard of configs with no
-    communication (the TPU-scale replacement for the reference's process
-    pool, ref parameter_sweep.py:436-446) — and, when the grid divides, the
-    field's z axis over 'z' with XLA-inserted halo exchange. Batch size must
-    be a multiple of the 'config' axis size (callers pad).
+    communication (the replacement for the reference's process pool, ref
+    parameter_sweep.py:436-446) — and, when the grid divides, the field's z
+    axis over 'z' with XLA-inserted halo exchange. Batch size must be a
+    multiple of the 'config' axis size (callers pad).
 
     ``rtol_wrt``: "b" (default) stops each solve at ||r|| <= rtol·||b|| —
     with warm starts late steps stop almost immediately, the throughput
     regime. "r0" ties the tolerance to the warm-start residual (the
-    increment scale) — the accuracy regime: measured worst-lane deviation
-    on the ill-conditioned sweep protocol drops ~12x at ~2.3x the cost
-    (BENCHMARKS.md round-3 sweep table).
+    increment scale) — the accuracy regime, with a smaller worst-lane
+    deviation at a higher cost.
 
-    ``solver='vmem'``: per-config VMEM-resident Pallas CG solves
-    (ops.pallas_cg.cg_vmem_batched — the XLA path re-reads the operator
-    from HBM every CG iteration; the Pallas grid keeps the shared stencils
-    and the whole solve on-chip). With ``fixed_iters`` the trajectory
-    matches the XLA path's ``pcg_fixed`` exactly; without, each config runs
-    a tolerance-based solve to ``rtol`` (cg_vmem_batched_tol — converged
-    accuracy at VMEM speed; stops on ||r|| <= rtol·||b|| like the XLA
-    ``pcg_solve`` path, checked every 8 iterations). Runs in interpreter
-    mode off-TPU so CPU tests cover the same kernels.
+    ``solver``: 'auto' or 'xla' — both name the one XLA engine
+    (:func:`heatflow_tpu.utils.resolve_solver`).
 
     ``warm_start='extrapolate'``: seed each step's CG with 2·u_n − u_{n−1}
     instead of u_n — free per iteration, and with ``fixed_iters`` it buys
-    the same accuracy at a smaller iteration budget (measured on the sweep
-    benchmark in BENCHMARKS.md). Both solver paths use the same seeds, so
-    vmem/XLA trajectory equality is preserved.
+    the same accuracy at a smaller iteration budget.
 
-    ``f64_refine=N`` (solver='vmem', dtype f32, needs x64): mixed-precision
-    sweeps — every lane's step runs N passes of f64-operator residual
-    around the f32 batched VMEM correction solve, carrying fields in f64
-    (the sweep twin of ``stepper.make_simulate_fn(f64_refine=N)``). Breaks
-    the f32 representation floor per sweep lane at ~one emulated-f64
-    stencil apply per pass per step.
+    ``f64_refine=N`` (dtype f32, needs x64): mixed-precision sweeps — every
+    lane's step runs N passes of f64-operator residual around an f32
+    correction solve (:func:`heatflow_tpu.ops.cg.refined_solve`), carrying
+    fields in f64 (the sweep twin of
+    ``stepper.make_simulate_fn(f64_refine=N)``). Breaks the f32
+    representation floor per sweep lane.
 
     The built function is memoized on ``problem.extras`` keyed by every
     argument: repeated calls with identical parameters return the SAME
-    compiled callable instead of re-tracing (re-tracing a fresh jit per call
-    measured 4-7 configs/s where the cached path sustains ~30 — see
-    BENCHMARKS.md). Mutating the problem in place after the first call does
-    not invalidate the cache; build a new Problem2D instead.
+    compiled callable instead of re-tracing. Mutating the problem in place
+    after the first call does not invalidate the cache; build a new
+    Problem2D instead.
     """
     if f64_refine:
         # the refined inner correction solves stop wrt their own rhs (the
         # per-pass residual — increment-relative by construction), so the
         # outer rtol_wrt has no effect; normalize it out of the cache key
         rtol_wrt = "b"
+    solver = resolve_solver(solver)
     cache_key = ("sweep_fn", vary_material, jnp.dtype(dtype).name, rtol,
                  maxiter, fixed_iters, precondition,
                  int(problem.num_steps if num_steps is None else num_steps),
@@ -304,48 +98,16 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         # silently degrading a typo'd/unsupported seed to 'previous'
         raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
                          "engines (use 'previous' or 'extrapolate')")
-    if precondition not in ("jacobi", "mg", "rline", "zline", "adi",
-                            "adaptive"):
+    if precondition not in PRECONDITIONERS:
         raise ValueError(f"unknown precondition {precondition!r}")
-    if precondition == "adaptive" and solver != "vmem":
-        # the per-lane rline/adi switch exists only in the batched VMEM
-        # kernel (same convention as the single-problem stepper's switch)
-        raise ValueError("precondition='adaptive' requires solver='vmem' "
-                         "for sweeps (the per-lane switch lives in the "
-                         "batched VMEM kernel)")
     if f64_refine:
-        # mixed-precision sweeps: f64-residual refinement around the f32
-        # batched VMEM correction solves (vmem_sweep_scan docstring)
-        if jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("f64_refine is the mixed-precision mode: "
-                             "dtype must be float32")
-        if not jax.config.jax_enable_x64:
-            raise ValueError("f64_refine needs jax_enable_x64=True")
-        if solver != "vmem":
-            raise ValueError("f64_refine sweeps run through solver='vmem' "
-                             "(the batched VMEM correction kernel)")
+        validate_refine(dtype)
         if fixed_iters is not None:
             raise ValueError("f64_refine composes with the tolerance-based "
-                             "solve (drop fixed_iters)")
-        if precondition == "adi":
-            # the refined inner correction solves stop wrt their own rhs
-            # at 'b' — exactly the loose wrt-‖b‖ regime where adi's
-            # loosely-stopped iterates carry ~20x the solution error of
-            # jacobi/rline at the same ||r|| threshold (cg_vmem_batched_tol
-            # docstring), and the FINAL pass's correction error is never
-            # re-residualized. rline gives the same iteration cut without
-            # the caveat.
-            import warnings
-            warnings.warn(
-                "precondition='adi' with f64_refine: the last refinement "
-                "pass's adi correction error is unchecked (inner solves "
-                "stop wrt 'b', the regime where adi carries ~20x the "
-                "equal-rtol solution error — see cg_vmem_batched_tol); "
-                "prefer precondition='rline' for refined sweeps",
-                stacklevel=2)
+                             "solves (no fixed_iters)")
     # refine carries fields and residuals in f64: assemble the master
-    # operator and the scan constants at f64, cast f32 kernel operands
-    # inside vmem_sweep_scan
+    # operator and the scan constants at f64; the f32 correction operands
+    # are cast per config inside one_config
     wdt = jnp.float64 if f64_refine else dtype
     dev = problem.device_arrays(wdt)
     num_steps = int(problem.num_steps if num_steps is None else num_steps)
@@ -354,7 +116,6 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     nz, nr = problem.mesh.shape
     if "watch_flat" not in dev:
         raise ValueError("sweeps need watcher points on the problem")
-    watch = dev["watch_flat"]
 
     # stencil slots are ordered by tag, i.e. by material insertion order
     m_idx = list(problem.mesh.material_tags).index(vary_material)
@@ -384,22 +145,9 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         ops["mg"] = mg_base
 
     extrapolate = warm_start == "extrapolate"
-    # Single-config solves ride the VMEM kernel too when the batch engine
-    # does — wrapped in custom_linear_solve (pallas_cg.cg_vmem_solve), so
-    # ``one_config`` stays differentiable at engine speed: this is the
-    # path that makes the gradient-based fit (drivers/fit.py) run on the
-    # fast rline/adi engines instead of the XLA-jacobi solver. f64_refine
-    # keeps its plain f64-operator XLA fallback; a fixed iteration budget
-    # keeps the pcg_fixed trajectory (pinned by cross-implementation
-    # tests); TPU kernels are f32-only (interpret mode covers the rest).
-    vmem_one_config = (solver == "vmem" and fixed_iters is None
-                       and not f64_refine
-                       and (jax.default_backend() != "tpu"
-                            or jnp.dtype(dtype) == jnp.float32))
 
     def one_config(ops, sample_k, fwhm, u0=None, step0=0, u_pp=None):
-        # wdt (not dtype): under f64_refine the ops/state are f64 — this
-        # single-config fallback then runs the plain f64-operator solve
+        # wdt (not dtype): under f64_refine the ops/state are f64
         free, dirich = ops["free"], ops["dirich"]
         dk = (jnp.asarray(sample_k, wdt) - base_k) * dt
         apply_A = lambda v: (apply_stencil(ops["A0"], v)
@@ -408,50 +156,33 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         s = jax.lax.rsqrt(jnp.where(diag > 0, diag, 1.0)) * free + dirich
         apply_s = lambda y: s * apply_A(s * y)
 
-        A_full = sm_v = pcr = pcr_z = None
-        if vmem_one_config:
-            from heatflow_tpu.ops.pallas_cg import pcr_pack
-            A_full = ops["A0"] + dk * ops["K_var"]
-            sm_v = s * free
-            if precondition in ("rline", "adi", "adaptive"):
-                # 'adaptive' has no per-solve switch in the single-config
-                # implicit-diff path (one cg_vmem_solve per call); it runs
-                # the static rline stack — the measured single-trajectory
-                # winner — instead of silently degrading to the
-                # unpreconditioned kernel (round-5 review finding)
-                pcr = pcr_pack(A_full, s, free)
-                if precondition == "adi":
-                    pcr_z = pcr_pack(A_full, s, free, axis=-2)
-
-        pre = None
+        # the preconditioner acts on the system the CG solves: under
+        # f64_refine the f32 casts of this config's scaled system (the f64
+        # master computes only residuals)
+        A_p, s_p, free_p = ops["A0"] + dk * ops["K_var"], s, free
+        if f64_refine:
+            A_p, s_p, free_p = (A_p.astype(dtype), s.astype(dtype),
+                                free.astype(dtype))
+            apply_s32 = lambda y: s_p * apply_stencil(A_p, s_p * y)
         if ops["mg"] is not None:
             from heatflow_tpu.ops.multigrid import make_vcycle
-            level_ops = [{**lv, "A": lv["A0"] + dk * lv["K"][m_idx],
-                          "shape": shp}
+            level_ops = [{**lv, "A": (lv["A0"] + dk * lv["K"][m_idx]
+                                      ).astype(A_p.dtype), "shape": shp}
                          for lv, shp in zip(ops["mg"], mg_shapes)]
             vcycle = make_vcycle(level_ops, nu_pre=1, nu_post=1)
-            inv_s = 1.0 / jnp.where(s > 0, s, 1.0)
+            inv_s = 1.0 / jnp.where(s_p > 0, s_p, 1.0)
             pre = lambda r: inv_s * vcycle(inv_s * r)
-        elif precondition in ("rline", "zline", "adi") \
-                and not vmem_one_config:
+        else:
             # per-config line factorization (the operator depends on
             # sample_k) — ~log2(N) elementwise passes, negligible against
             # a transient; vmaps over the config batch like the rest
-            # (the vmem path factors the same stacks via pcr_pack above)
-            from heatflow_tpu.ops.linesolve import (adi_preconditioner,
-                                                    line_preconditioner)
-            A_full = ops["A0"] + dk * ops["K_var"]
-            if precondition == "adi":
-                pre = adi_preconditioner(A_full, s, free)
-            else:
-                pre = line_preconditioner(
-                    A_full, s, free,
-                    axis=-1 if precondition == "rline" else -2)
+            pre = line_family_preconditioner(precondition, A_p, s_p, free_p)
 
         amp_offset = ops["heat_T"][0] - ic
         coeff = jnp.asarray(-4.0 * np.log(2.0), wdt) / (fwhm * fwhm)
         profile = jnp.exp(coeff * ops["r_sq"]) * ops["base"]
-        # affine-in-amplitude lift: A g precomputed once (see vmem_sweep_scan)
+        # the Dirichlet lift is affine in the interpolated amplitude:
+        # g(t) = g0 + amp(t)·g1, so A g is precomputed ONCE per scan
         g0 = ic * (dirich - profile)
         g1 = profile
         Ag0 = apply_A(g0)
@@ -465,12 +196,11 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
                  - (Ag0 + amp * Ag1)) * s * free
             seed = 2.0 * u_prev - u_pp if extrapolate else u_prev
             y0 = (seed / jnp.where(s > 0, s, 1.0)) * free
-            if vmem_one_config:
-                from heatflow_tpu.ops.pallas_cg import cg_vmem_solve
-                x = cg_vmem_solve(A_full, sm_v, b, y0, rtol,
-                                  maxiter=maxiter, rtol_wrt=rtol_wrt,
-                                  interpret=jax.default_backend() != "tpu",
-                                  pcr=pcr, pcr_z=pcr_z)
+            if f64_refine:
+                x = refined_solve(apply_s, apply_s32, b, y0, free,
+                                  passes=f64_refine, rtol=rtol,
+                                  maxiter=maxiter, dtype=dtype,
+                                  precond=pre)[0]
             elif fixed_iters is not None:
                 x = pcg_fixed(apply_s, b, y0, precond=pre, mask=free,
                               iters=fixed_iters).x
@@ -483,77 +213,20 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
         u0 = jnp.full((nz, nr), ic, wdt) if u0 is None \
             else jnp.asarray(u0, wdt)
         u_pp = u0 if u_pp is None else jnp.asarray(u_pp, wdt)
-        # single-rounding times (see vmem_sweep_scan)
+        # times formed as (step0 + i)·dt in ONE rounding so a chunked run's
+        # absolute times are bitwise those of the unchunked scan (adding
+        # t0 = step0·dt separately rounds twice and the 1-ulp difference is
+        # amplified by the gain-2 extrapolated seed)
         ts = (jnp.arange(1, num_steps + 1, dtype=wdt)
               + jnp.asarray(step0, wdt)) * dt
         (u_fin, u_pen), traces = jax.lax.scan(step, (u0, u_pp), ts)
         return traces, u_fin, u_pen
 
-    def batched_vmem(ops, ks, fs, u0, u_pp, step0):
-        return vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, dtype=dtype,
-                               ic=ic, dt=dt, num_steps=num_steps,
-                               base_k=base_k, fixed_iters=fixed_iters,
-                               rtol=rtol, maxiter=maxiter,
-                               extrapolate=extrapolate,
-                               rline=precondition == "rline",
-                               adi=precondition == "adi",
-                               adaptive=precondition == "adaptive",
-                               rtol_wrt=rtol_wrt, f64_refine=f64_refine)
-
-    if solver == "vmem":
-        if mesh is not None and ("z" in mesh.axis_names
-                                 and mesh.shape["z"] > 1):
-            raise ValueError("solver='vmem' shards the config axis only "
-                             "(whole problems stay on one chip); use "
-                             "z_shards=1")
-        if precondition in ("rline", "adi", "adaptive") \
-                and fixed_iters is not None:
-            raise ValueError(f"{precondition}-preconditioned vmem sweeps "
-                             "are tolerance-based (drop fixed_iters)")
-        if precondition not in ("jacobi", "rline", "adi", "adaptive"):
-            raise ValueError("solver='vmem' supports precondition='jacobi' "
-                             "(scaled identity), 'rline' (in-kernel "
-                             "r-line PCR), 'adi' (r-line + z-line) or "
-                             "'adaptive' (per-lane per-step rline/adi "
-                             "switch)")
-        if jax.default_backend() == "tpu":
-            from heatflow_tpu.ops.pallas_cg import fits_in_vmem_batched
-            if not fits_in_vmem_batched(
-                    nz, nr, dtype, rline=precondition == "rline",
-                    adi=precondition in ("adi", "adaptive")):
-                raise ValueError(
-                    f"sweep working set for a {nz}x{nr} grid exceeds the "
-                    "VMEM budget; use solver='xla'")
-
-        core_vmem = batched_vmem
-        if mesh is not None:
-            # each device runs the Pallas kernel on ITS shard of configs
-            # (shard_map: operators replicated, batch split over 'config')
-            from jax import shard_map
-            from jax.sharding import PartitionSpec as P
-            rep = jax.tree.map(lambda _: P(), ops)
-            core_vmem = shard_map(
-                batched_vmem, mesh=mesh,
-                in_specs=(rep, P("config"), P("config"), P("config"),
-                          P("config"), P()),
-                out_specs=(P("config"), P("config"), P("config")),
-                check_vma=False)
-
-        def _batched(ops, ks, fs):
-            B = len(ks)
-            u0 = jnp.full((B, nz, nr), ic, wdt)
-            return core_vmem(ops, ks, fs, u0, u0, jnp.asarray(0, wdt))[0]
-
-        def _batched_seg(ops, ks, fs, u0, u_pp, step0):
-            return core_vmem(ops, ks, fs, u0, u_pp,
-                             jnp.asarray(step0, wdt))
-
-    else:
-        _batched = lambda ops, ks, fs: jax.vmap(
-            lambda k, f: one_config(ops, k, f)[0])(ks, fs)
-        _batched_seg = lambda ops, ks, fs, u0, u_pp, step0: jax.vmap(
-            lambda k, f, u, up: one_config(ops, k, f, u, step0, up)
-        )(ks, fs, u0, u_pp)
+    _batched = lambda ops, ks, fs: jax.vmap(
+        lambda k, f: one_config(ops, k, f)[0])(ks, fs)
+    _batched_seg = lambda ops, ks, fs, u0, u_pp, step0: jax.vmap(
+        lambda k, f, u, up: one_config(ops, k, f, u, step0, up)
+    )(ks, fs, u0, u_pp)
 
     if mesh is None:
         batched = jax.jit(_batched)
@@ -638,125 +311,6 @@ def make_sweep_fn(problem: Problem2D, *, vary_material: str = "p_sample",
     return simulate_batch
 
 
-def _recording_vmem(problem: Problem2D, *, vary_material, dtype, rtol,
-                    maxiter, fixed_iters, warm_start, mesh, rtol_wrt,
-                    f64_refine, precondition, proj_rtol, proj_maxiter):
-    """Recording (artifact-parity) sweeps through the batched VMEM engine:
-    both the backward-Euler solve AND the per-step r-weighted gradient
-    projection run as per-config Pallas VMEM solves inside one scan
-    (vmem_sweep_scan(record=...)) — the XLA recording path re-streams the
-    operator from HBM every CG iteration and is ~4-6x slower at the same
-    artifacts."""
-    if warm_start not in ("previous", "extrapolate"):
-        raise ValueError(f"unknown warm_start {warm_start!r} for sweep "
-                         "engines (use 'previous' or 'extrapolate')")
-    if f64_refine:
-        if jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("f64_refine is the mixed-precision mode: "
-                             "dtype must be float32")
-        if not jax.config.jax_enable_x64:
-            raise ValueError("f64_refine needs jax_enable_x64=True")
-        if fixed_iters is not None:
-            raise ValueError("f64_refine composes with the tolerance-based "
-                             "solve (drop fixed_iters)")
-    if precondition not in ("jacobi", "rline", "adi", "adaptive"):
-        raise ValueError("solver='vmem' supports precondition='jacobi', "
-                         "'rline', 'adi' or 'adaptive'")
-    if precondition in ("rline", "adi", "adaptive") \
-            and fixed_iters is not None:
-        raise ValueError(f"{precondition}-preconditioned vmem sweeps are "
-                         "tolerance-based (drop fixed_iters)")
-    if mesh is not None and ("z" in mesh.axis_names
-                             and mesh.shape["z"] > 1):
-        raise ValueError("solver='vmem' shards the config axis only; use "
-                         "z_shards=1")
-    nz, nr = problem.mesh.shape
-    if jax.default_backend() == "tpu":
-        if jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("the VMEM kernel is f32-only on TPU")
-        from heatflow_tpu.ops.pallas_cg import fits_in_vmem_batched
-        if not fits_in_vmem_batched(
-                nz, nr, dtype, rline=precondition == "rline",
-                adi=precondition in ("adi", "adaptive")):
-            raise ValueError(
-                f"sweep working set for a {nz}x{nr} grid exceeds the "
-                "VMEM budget; use solver='xla'")
-
-    wdt = jnp.float64 if f64_refine else dtype
-    dev = problem.device_arrays(wdt)
-    num_steps = int(problem.num_steps)
-    dt = jnp.asarray(problem.dt, wdt)
-    ic = jnp.asarray(problem.ic_temp, wdt)
-    if "watch_flat" not in dev:
-        raise ValueError("sweeps need watcher points on the problem")
-    m_idx = list(problem.mesh.material_tags).index(vary_material)
-    base_k = float(problem.kappas[m_idx])
-    A0, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
-                                dev["rho_cvs"], dt)
-    ops = {"A0": A0, "M_op": M_op, "K_var": dev["K"][m_idx],
-           "free": dev["free"], "dirich": dev["dirichlet"],
-           "base": dev["heat_profile_base"], "r_sq": dev["r_sq"],
-           "heat_t": dev["heat_t"], "heat_T": dev["heat_T"],
-           "watch": dev["watch_flat"]}
-    s_mp = jax.lax.rsqrt(jnp.where(dev["M_proj"][0] > 0,
-                                   dev["M_proj"][0], 1.0))
-    record = {"Mp": dev["M_proj"], "Gr": dev["G_r"], "s_mp": s_mp,
-              "band_nodes": dev["band_nodes"],
-              "band_bins": dev["band_bins"],
-              "bin_counts": dev["bin_counts"].astype(dtype),
-              # structured axis rows are lattice column r=0
-              "axis_nodes": jnp.arange(nz) * nr}
-    extrapolate = warm_start == "extrapolate"
-
-    def core(ops, rec, ks, fs, u0, u_pp):
-        return vmem_sweep_scan(
-            ops, ks, fs, u0, u_pp, jnp.asarray(0, wdt), dtype=dtype,
-            ic=ic, dt=dt, num_steps=num_steps, base_k=base_k,
-            fixed_iters=fixed_iters, rtol=rtol, maxiter=maxiter,
-            extrapolate=extrapolate, rline=precondition == "rline",
-            adi=precondition == "adi",
-            adaptive=precondition == "adaptive",
-            rtol_wrt=rtol_wrt, f64_refine=f64_refine, record=rec,
-            proj_rtol=proj_rtol, proj_maxiter=proj_maxiter)[0]
-
-    if mesh is not None:
-        from jax import shard_map
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        rep = jax.tree.map(lambda _: P(), ops)
-        rep_rec = jax.tree.map(lambda _: P(), record)
-        core = shard_map(core, mesh=mesh,
-                         in_specs=(rep, rep_rec, P("config"), P("config"),
-                                   P("config"), P("config")),
-                         out_specs={k: P("config")
-                                    for k in ("watch", "band", "axis")},
-                         check_vma=False)
-        ops_sh = jax.tree.map(lambda _: NamedSharding(mesh, P()), ops)
-        rec_sh = jax.tree.map(lambda _: NamedSharding(mesh, P()), record)
-        cfg_sh = NamedSharding(mesh, P("config"))
-        fld_sh = NamedSharding(mesh, P("config", None, None))
-        batched = jax.jit(core, in_shardings=(ops_sh, rec_sh, cfg_sh,
-                                              cfg_sh, fld_sh, fld_sh),
-                          out_shardings={k: cfg_sh
-                                         for k in ("watch", "band",
-                                                   "axis")})
-    else:
-        batched = jax.jit(core)
-
-    def simulate_batch(sample_k, fwhm):
-        B = len(np.asarray(sample_k))
-        u0 = jnp.full((B, nz, nr), ic, wdt)
-        ys = dict(batched(ops, record, jnp.asarray(sample_k, wdt),
-                          jnp.asarray(fwhm, wdt), u0, u0))
-        ys["times"] = np.arange(1, num_steps + 1) * problem.dt
-        return ys
-
-    simulate_batch.times = (np.arange(1, num_steps + 1) * problem.dt)
-    simulate_batch.band_centers = problem.radial.bin_centers
-    simulate_batch.axis_z = problem.radial.axis_z
-    simulate_batch.watcher_names = list(problem.watcher_names)
-    return simulate_batch
-
-
 def make_sweep_fn_recording(problem: Problem2D, *,
                             vary_material: str = "p_sample",
                             dtype=jnp.float32, rtol: float = 1e-6,
@@ -764,7 +318,7 @@ def make_sweep_fn_recording(problem: Problem2D, *,
                             fixed_iters: int | None = None,
                             warm_start: str = "previous", mesh=None,
                             rtol_wrt: str = "b", f64_refine: int = 0,
-                            solver: str = "xla",
+                            solver: str = "auto",
                             precondition: str = "jacobi",
                             proj_rtol: float = 1e-11,
                             proj_maxiter: int = 400):
@@ -780,23 +334,18 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     ``mesh``: shard the batch over the mesh's 'config' axis (batch size
     must be a multiple of the axis size — callers pad).
 
-    RESOLVED (round 3) — the f32 TPU "B >= 2 divergence": with batched
-    coefficients, XLA:TPU lowered the material-contraction einsum in
-    ``combine_operator`` to an MXU dot_general at default precision
-    (bf16-truncated inputs, ~4e-3 relative operator perturbation), while
-    the degenerate B=1 dot simplified to exact f32 multiply-adds. The
-    perturbed backward-Euler operator (scaled condition ~1e6) went
-    indefinite, so CG hit maxiter and NaN'd on every lane of a batch
-    while the identical single config converged. Fixed by replacing every
-    material-contraction einsum with a statically-unrolled VPU
-    multiply-add (``ops.stencil.material_combine``; exact in f32, and the
-    natively right lowering for a length-≤9 contraction anyway).
-    Verified on TPU: B=2 matches B=1 iteration-for-iteration (174/169),
-    and lowering-level regression tests pin the no-dot_general property
-    (tests/test_round3_fixes.py)."""
+    Batched coefficients must not reach the material contraction as a
+    ``dot_general``: at default precision an accelerator may run it with
+    reduced-precision inputs, and the perturbed backward-Euler operator
+    (scaled condition ~1e6) goes indefinite, so CG hits maxiter on every
+    lane of a batch while the identical single config converges.
+    ``ops.stencil.material_combine`` is a statically-unrolled
+    multiply-add, exact in f32; lowering-level regression tests pin the
+    no-dot_general property (tests/test_round3_fixes.py)."""
     from heatflow_tpu.sim.stepper import make_simulate_fn
     if f64_refine:
         rtol_wrt = "b"   # no effect on refined inner solves (see above)
+    solver = resolve_solver(solver)
     cache_key = ("sweep_fn_rec", vary_material, jnp.dtype(dtype).name, rtol,
                  maxiter, fixed_iters, warm_start, mesh, rtol_wrt,
                  f64_refine, solver, precondition, proj_rtol, proj_maxiter)
@@ -806,17 +355,6 @@ def make_sweep_fn_recording(problem: Problem2D, *,
     if problem.radial is None:
         raise ValueError("gradient-recording sweeps need radial sampling "
                          "on the problem")
-    if solver == "vmem":
-        simulate_batch = _recording_vmem(
-            problem, vary_material=vary_material, dtype=dtype, rtol=rtol,
-            maxiter=maxiter, fixed_iters=fixed_iters, warm_start=warm_start,
-            mesh=mesh, rtol_wrt=rtol_wrt, f64_refine=f64_refine,
-            precondition=precondition, proj_rtol=proj_rtol,
-            proj_maxiter=proj_maxiter)
-        cache[cache_key] = simulate_batch
-        return simulate_batch
-    if solver != "xla":
-        raise ValueError(f"unknown solver {solver!r}")
     # rtol_wrt defaults to 'b' to match the plain sweep path's stopping
     # rule, so toggling record_gradient does not change watcher traces at
     # a given rtol; 'r0' selects the increment-relative accuracy regime.
@@ -879,8 +417,8 @@ def make_sweep_fn_recording(problem: Problem2D, *,
 def balanced_chunk_len(total: int, step_chunk: int) -> int:
     """Balance chunk lengths over ceil(total/step_chunk) chunks: a ragged
     final chunk re-runs the FULL compiled segment and discards the surplus
-    steps (each a real solve — measured +25% wall on 40 steps at
-    step_chunk=25, where 25+25-keep-15 did 50 steps of work). Ceil-balancing
+    steps (each a real solve: 40 steps at step_chunk=25 as 25+25-keep-15
+    do 50 steps of work). Ceil-balancing
     (40 -> 20+20) never exceeds step_chunk, keeps one compile, and cuts the
     discarded surplus to < n_chunks steps total."""
     total = int(total)
@@ -894,11 +432,12 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
                            rtol: float = 1e-5, maxiter: int = 4000,
                            precondition: str = "jacobi",
                            verbose: bool = False, mesh=None,
-                           solver: str = "xla", warm_start: str = "previous",
+                           solver: str = "auto", warm_start: str = "previous",
                            rtol_wrt: str = "b", f64_refine: int = 0):
     """Run the full transient for a (possibly very large) batch with bounded
     device-call durations: the whole batch stays resident while time is
-    integrated chunk by chunk. Returns traces (B, num_steps, W).
+    integrated chunk by chunk. Returns traces (B, num_steps, W). Structured
+    problems only.
 
     ``step_chunk`` is an upper bound on steps per device call; the actual
     chunk length is ceil-balanced over the resulting number of chunks
@@ -911,39 +450,22 @@ def run_sweep_time_chunked(problem: Problem2D, sample_k, fwhm, *,
     ``warm_start='extrapolate'`` is exact across chunk boundaries: the
     penultimate field of each chunk is threaded into the next, so the
     chunked trajectory equals the unchunked one bitwise (pinned in
-    tests/test_warmstart.py). Exception: ``precondition='adaptive'`` —
-    the per-lane iteration-count carry is NOT threaded across chunks
-    (each chunk's first step conservatively re-runs the deep ADI branch
-    for every lane), so chunked adaptive runs are tolerance-equal, not
-    bitwise, to the unchunked scan. Adaptive is a measured-negative
-    option in the batched regime (BENCHMARKS.md), so the conservative
-    re-init is documented rather than plumbed.
+    tests/test_warmstart.py).
 
     ``rtol_wrt`` and ``f64_refine`` thread into the underlying sweep
-    makers (both mesh kinds) — chunked mixed-precision sweeps carry the
+    maker — chunked mixed-precision sweeps carry the
     f64 fields across chunk boundaries exactly
     (tests/test_sweep_refine.py)."""
     total = int(problem.num_steps)
     chunk_len = balanced_chunk_len(total, step_chunk)
-    from heatflow_tpu.sim.unstructured import ProblemUnstructured
-    if isinstance(problem, ProblemUnstructured):
-        # overlay meshes chunk through the shared VMEM scan (the reference's
-        # fan-out is mesh-kind-agnostic, ref parameter_sweep.py:436-446)
-        if solver != "vmem":
-            raise ValueError("time-chunked unstructured sweeps run through "
-                             "solver='vmem' (grid-overlay meshes)")
-        from heatflow_tpu.sim.unstructured import make_sweep_fn_unstructured
-        fn = make_sweep_fn_unstructured(
-            problem, dtype=dtype, fixed_iters=fixed_iters, rtol=rtol,
-            maxiter=maxiter, warm_start=warm_start, solver="vmem",
-            num_steps=chunk_len, mesh=mesh, rtol_wrt=rtol_wrt,
-            precondition=precondition, f64_refine=f64_refine)
-    else:
-        fn = make_sweep_fn(problem, dtype=dtype, fixed_iters=fixed_iters,
-                           rtol=rtol, maxiter=maxiter,
-                           precondition=precondition, num_steps=chunk_len,
-                           mesh=mesh, solver=solver, warm_start=warm_start,
-                           rtol_wrt=rtol_wrt, f64_refine=f64_refine)
+    if not isinstance(problem, Problem2D):
+        raise ValueError("time-chunked sweeps need a structured problem "
+                         "(the unstructured sweep maker has no segment API)")
+    fn = make_sweep_fn(problem, dtype=dtype, fixed_iters=fixed_iters,
+                       rtol=rtol, maxiter=maxiter,
+                       precondition=precondition, num_steps=chunk_len,
+                       mesh=mesh, solver=solver, warm_start=warm_start,
+                       rtol_wrt=rtol_wrt, f64_refine=f64_refine)
     sample_k = np.asarray(sample_k)
     fwhm = np.asarray(fwhm)
     B = len(sample_k)

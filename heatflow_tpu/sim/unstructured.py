@@ -20,11 +20,13 @@ import jax.numpy as jnp
 import numpy as np
 
 from heatflow_tpu.mesh.msh_io import UnstructuredMesh
-from heatflow_tpu.ops.cg import pcg, refine_inner_scale
+from heatflow_tpu.ops.cg import pcg, refined_solve
 from heatflow_tpu.ops.ell import (EllOps, assemble_ell, ell_apply,
                                   ell_combine, ell_diag)
 from heatflow_tpu.sim.bc import HeatingCurve, node_row_mask
 from heatflow_tpu.sim.problem import AXIS_TOL, BAND_RMAX, BIN_DZ
+from heatflow_tpu.sim.stepper import validate_refine
+from heatflow_tpu.utils import resolve_solver
 
 
 @dataclass
@@ -136,43 +138,17 @@ def _overlay_prep(problem: ProblemUnstructured):
     return idx_np, np.argsort(idx_np), oshape, stn
 
 
-def auto_selects_vmem(mesh, dtype, precondition="jacobi") -> bool:
-    """Would ``solver='auto'`` pick the grid-overlay VMEM engine for this
-    mesh/dtype? (TPU backend, f32, overlay present and within the VMEM
-    budget.)  Drivers use this to resolve engine-dependent defaults —
-    notably whether a DEFAULTED rline preconditioner is available — before
-    building the simulate fn (the same logic gates ``use_vmem`` inside
-    :func:`make_simulate_fn_unstructured`)."""
-    overlay = getattr(mesh, "grid_overlay", None)
-    if overlay is None or jax.default_backend() != "tpu" \
-            or jnp.dtype(dtype) != jnp.float32:
-        return False
-    from heatflow_tpu.ops.pallas_cg import (adi_extra_planes, fits_in_vmem,
-                                            rline_extra_planes)
-    oshape = tuple(int(s) for s in overlay["shape"])
-    extra = (rline_extra_planes(oshape[1]) if precondition == "rline"
-             else adi_extra_planes(*oshape) if precondition == "adi" else 0)
-    return fits_in_vmem(*oshape, dtype, n_points=9, extra_planes=extra)
-
-
-def sweep_auto_selects_vmem(mesh, dtype, precondition="jacobi") -> bool:
-    """Would ``solver='auto'`` pick the overlay VMEM engine for a SWEEP on
-    this mesh/dtype? The batched per-config sweep kernel holds the shared
-    A0+K_var stencils plus the per-config combined operator — a strictly
-    larger working set than the single-problem kernel
-    (:func:`auto_selects_vmem`), so the sweep driver must resolve against
-    THIS predicate (the same guard ``_sweep_vmem_unstructured`` enforces);
-    resolving against the single-problem one picks an engine the maker
-    then rejects for shapes in the budget gap."""
-    overlay = getattr(mesh, "grid_overlay", None)
-    if overlay is None or jax.default_backend() != "tpu" \
-            or jnp.dtype(dtype) != jnp.float32:
-        return False
-    from heatflow_tpu.ops.pallas_cg import fits_in_vmem_batched
-    oshape = tuple(int(s) for s in overlay["shape"])
-    return fits_in_vmem_batched(*oshape, dtype, n_points=9,
-                                rline=precondition == "rline",
-                                adi=precondition == "adi")
+def check_unstructured_precondition(precondition: str) -> None:
+    """The XLA engine's unstructured path preconditions with Jacobi
+    scaling only: 'rline'/'adi' (line solves on the overlay lattice) have
+    no implementation there, and a silent Jacobi run would misreport the
+    requested preconditioner."""
+    if precondition in ("rline", "adi"):
+        raise ValueError(f"{precondition} preconditioning is not available "
+                         "on unstructured problems; use "
+                         "precondition='jacobi'")
+    if precondition != "jacobi":
+        raise ValueError(f"unknown precondition {precondition!r}")
 
 
 def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
@@ -181,7 +157,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                                   proj_rtol=None, proj_maxiter=400,
                                   record_gradient=True,
                                   record_fields=False, rtol_wrt="b",
-                                  differentiable=False, solver="xla",
+                                  differentiable=False, solver="auto",
                                   warm_start="previous",
                                   precondition="jacobi", f64_refine=0):
     """Build a jittable simulate(kappas, rho_cvs, fwhm, u0, t0, source) on the
@@ -196,13 +172,15 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     the enabler for gradient-based experimental fitting on imported meshes.
 
     warm_start='extrapolate' seeds each step's CG with 2·u_n − u_{n−1}
-    instead of u_n (same semantics as the structured stepper; measured
-    trade-offs in BENCHMARKS.md).
+    instead of u_n (same semantics as the structured stepper).
 
     f64_refine=N: mixed-precision iterative refinement — f64-operator
     residuals around the f32 correction solves, state carried in f64
-    (same semantics and measured frontier as
-    ``stepper.make_simulate_fn(f64_refine=N)``; requires x64, dtype f32).
+    (same semantics as ``stepper.make_simulate_fn(f64_refine=N)``;
+    requires x64, dtype f32).
+
+    precondition: 'jacobi' only — the XLA engine has no line or multigrid
+    preconditioner on unstructured meshes; 'rline'/'adi' raise.
 
     Memoized per problem (same convention as sweepkernel.make_sweep_fn):
     identical arguments return the same compiled callable — re-tracing a
@@ -212,16 +190,12 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         # refined inner solves stop wrt their own per-pass residual; the
         # outer rtol_wrt has no effect — normalize it out of the cache key
         rtol_wrt = "b"
+    solver = resolve_solver(solver)
     cache_key = ("sim_fn", jnp.dtype(dtype).name, rtol, maxiter, fixed_iters,
                  proj_rtol, proj_maxiter, record_gradient, record_fields,
                  rtol_wrt, differentiable, solver, warm_start, precondition,
                  f64_refine)
-    if precondition not in ("jacobi", "rline", "adi"):
-        raise ValueError(f"unknown precondition {precondition!r}")
-    if precondition in ("rline", "adi") and solver not in ("vmem", "auto"):
-        raise ValueError(f"{precondition} preconditioning on unstructured "
-                         "problems runs the grid-overlay VMEM path "
-                         "(solver='vmem')")
+    check_unstructured_precondition(precondition)
     cache = problem.__dict__.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
@@ -232,14 +206,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         raise ValueError(f"unknown warm_start {warm_start!r} (use "
                          "'previous' or 'extrapolate')")
     if f64_refine:
-        # mixed-precision iterative refinement — same semantics as
-        # stepper.make_simulate_fn(f64_refine=N): f64 operator residuals
-        # around the f32 correction solves, state carried in f64
-        if jnp.dtype(dtype) != jnp.float32:
-            raise ValueError("f64_refine is the mixed-precision mode: "
-                             "dtype must be float32")
-        if not jax.config.jax_enable_x64:
-            raise ValueError("f64_refine needs jax_enable_x64=True")
+        validate_refine(dtype)
         if differentiable or fixed_iters is not None:
             raise ValueError("f64_refine composes with the tolerance-based "
                              "non-differentiable solvers")
@@ -256,42 +223,11 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     if proj_rtol is None:
         proj_rtol = rtol
 
-    # Grid-overlay fast path (ops/overlay.py): when the mesh topology embeds
-    # in a 2D lattice, the operators become permuted 9-point stencils — the
-    # TPU-fast form (gathers don't vectorize on TPU). All vectors live in
+    # Grid-overlay path (ops/overlay.py): when the mesh topology embeds
+    # in a 2D lattice, the operators become permuted 9-point stencils
+    # (shifted multiply-adds instead of gathers). All vectors live in
     # lattice ordering inside the core; node ordering at the boundaries.
     overlay = getattr(problem.mesh, "grid_overlay", None)
-    use_vmem = False
-    vmem_interpret = jax.default_backend() != "tpu"
-    if solver == "vmem":
-        if overlay is None:
-            raise ValueError("solver='vmem' needs a grid-overlay mesh "
-                             "(the VMEM kernel is stencil-form only)")
-        from heatflow_tpu.ops.pallas_cg import (adi_extra_planes,
-                                                fits_in_vmem,
-                                                rline_extra_planes)
-        oshape0 = tuple(int(s) for s in overlay["shape"])
-        extra = (rline_extra_planes(oshape0[1]) if precondition == "rline"
-                 else adi_extra_planes(*oshape0)
-                 if precondition == "adi" else 0)
-        if not fits_in_vmem(*oshape0, dtype, n_points=9, extra_planes=extra):
-            raise ValueError("problem exceeds the VMEM budget")
-        if not vmem_interpret and dtype != jnp.float32:
-            raise ValueError("the VMEM kernel is f32-only on TPU")
-        use_vmem = True
-    elif solver == "auto":
-        use_vmem = auto_selects_vmem(problem.mesh, dtype, precondition)
-    if precondition in ("rline", "adi") and not use_vmem:
-        # the only unstructured line-preconditioned engine is the overlay
-        # VMEM kernel — running the ELL/XLA path here would silently drop
-        # the preconditioner (drivers pre-resolve via auto_selects_vmem and
-        # fall back to jacobi for DEFAULTED rline; an explicit request
-        # errors instead of lying)
-        raise ValueError(
-            f"{precondition} preconditioning on unstructured problems runs "
-            "the grid-overlay VMEM engine, which was not selected here (no "
-            "overlay, exceeds the VMEM budget, or off-TPU/non-f32 under "
-            "solver='auto'); use precondition='jacobi' or solver='vmem'")
     if overlay is not None:
         idx_np, inv_np, oshape, stn = _overlay_prep(problem)
         remap = lambda v: np.asarray(v)[inv_np]
@@ -356,18 +292,6 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
         s_mp = jax.lax.rsqrt(jnp.where(Mp_diag > 0, Mp_diag, 1.0))
         apply_mp_s = lambda y: s_mp * apply_Mp(s_mp * y)
 
-        pcr = pcr_z = None
-        if use_vmem and precondition in ("rline", "adi") and not f64_refine:
-            # line PCR factors on the overlay lattice (9-point operator's
-            # r-couplings are planes 3/4, z-couplings 1/2 — same slots as
-            # the 7-point layout) — factored once per transient, outside
-            # the scan; 'adi' adds the z stack (split-additive composition)
-            from heatflow_tpu.ops.pallas_cg import pcr_pack
-            pcr = pcr_pack(A9, s.reshape(oshape), free.reshape(oshape))
-            if precondition == "adi":
-                pcr_z = pcr_pack(A9, s.reshape(oshape),
-                                 free.reshape(oshape), axis=-2)
-
         if f64_refine:
             # f32 casts of the scaled system for the inner correction
             # solves; the f64 masters above compute only per-pass residuals
@@ -383,13 +307,6 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                     Mp32, v.reshape(oshape)).ravel()
                 apply_G32 = lambda v: apply_stencil(
                     G32, v.reshape(oshape)).ravel()
-                if use_vmem and precondition in ("rline", "adi"):
-                    from heatflow_tpu.ops.pallas_cg import pcr_pack
-                    pcr = pcr_pack(A9_32, s32.reshape(oshape),
-                                   free32.reshape(oshape))
-                    if precondition == "adi":
-                        pcr_z = pcr_pack(A9_32, s32.reshape(oshape),
-                                         free32.reshape(oshape), axis=-2)
             else:
                 A_vals32 = A_vals.astype(dtype)
                 Mp32v, G32v = dev["Mp"].astype(dtype), dev["G"].astype(dtype)
@@ -398,36 +315,6 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                 apply_G32 = lambda v: ell_apply(cols, G32v, v)
             apply_s32 = lambda y: s32 * apply_A32(s32 * y)
             apply_mp_s32 = lambda y: s_mp32 * apply_Mp32(s_mp32 * y)
-
-        def _solve_refined(bt, y0):
-            """f64-residual / f32-correction refinement (see
-            stepper._solve_refined; shared unit-norm rhs scaling and
-            degenerate-rhs stop — ops.cg.refine_inner_scale)."""
-            from heatflow_tpu.ops.pallas_cg import cg_vmem_tol
-            floor2 = jnp.asarray(1e-30, cdt) * jnp.sum(bt * bt)
-            y = y0
-            iters = jnp.zeros((), jnp.int32)
-            for _ in range(f64_refine):
-                r64 = bt - free * apply_s(y)
-                rn2 = jnp.sum(r64 * r64)
-                rnorm, rtol_eff = refine_inner_scale(rn2, floor2, rtol,
-                                                     dtype)
-                r32 = (r64 / rnorm).astype(dtype)
-                if use_vmem:
-                    dy2, its = cg_vmem_tol(
-                        A9_32, (s32 * free32).reshape(oshape),
-                        r32.reshape(oshape), jnp.zeros(oshape, dtype),
-                        rtol_eff, maxiter=maxiter, rtol_wrt="b",
-                        interpret=vmem_interpret, pcr=pcr, pcr_z=pcr_z)
-                    dy = dy2.ravel()
-                else:
-                    dsol = pcg(apply_s32, r32, jnp.zeros((n,), dtype),
-                               mask=free32, rtol=rtol_eff, maxiter=maxiter,
-                               rtol_wrt="b")
-                    dy, its = dsol.x, dsol.iters
-                y = y + dy.astype(cdt) * rnorm
-                iters = iters + its
-            return y, iters
 
         coeff = jnp.asarray(-4.0 * np.log(2.0), cdt) / (fw * fw)
         profile = jnp.exp(coeff * dev["r_sq"]) * dev["heat_f"]
@@ -450,8 +337,7 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                 u_prev, u_pp, gr_prev, gr_pp = carry
                 seed = 2.0 * u_prev - u_pp
                 # the projection seed rides the same knob (the gradient
-                # field evolves as smoothly in time as u — measured ~2x
-                # fewer projection iterations, BENCHMARKS.md)
+                # field evolves as smoothly in time as u)
                 gr_seed = 2.0 * gr_prev - gr_pp
             else:
                 u_prev, gr_prev = carry
@@ -462,7 +348,10 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
             b = (apply_M(u_prev) + b_src - (Ag0 + amp * Ag1)) * s
             y0 = (seed / jnp.where(s > 0, s, 1.0)) * free
             if f64_refine:
-                y, iters = _solve_refined(b * free, y0)
+                y, iters, _ = refined_solve(
+                    apply_s, apply_s32, b * free, y0, free,
+                    passes=f64_refine, rtol=rtol, maxiter=maxiter,
+                    dtype=dtype)
                 u = y * s * free + g
                 outs = {"cg_iters": iters}
             elif differentiable:
@@ -470,15 +359,6 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
                               maxiter=maxiter, rtol_wrt=rtol_wrt)
                 u = x * s * free + g
                 outs = {}
-            elif use_vmem:
-                from heatflow_tpu.ops.pallas_cg import cg_vmem_tol
-                x2, iters = cg_vmem_tol(
-                    A9, (s * free).reshape(oshape),
-                    (b * free).reshape(oshape), y0.reshape(oshape), rtol,
-                    maxiter=maxiter, rtol_wrt=rtol_wrt,
-                    interpret=vmem_interpret, pcr=pcr, pcr_z=pcr_z)
-                u = x2.ravel() * s * free + g
-                outs = {"cg_iters": iters}
             else:
                 if fixed_iters is not None:
                     sol = pcg_fixed(apply_s, b * free, y0, mask=free,
@@ -553,191 +433,14 @@ def make_simulate_fn_unstructured(problem: ProblemUnstructured, *,
     return simulate
 
 
-def _sweep_vmem_unstructured(problem: ProblemUnstructured, m_idx: int, *,
-                             dtype, rtol, maxiter, fixed_iters, warm_start,
-                             num_steps=None, mesh=None, rtol_wrt="b",
-                             precondition="jacobi", f64_refine=0,
-                             record_gradient=False, proj_rtol=1e-11,
-                             proj_maxiter=400):
-    """VMEM-kernel sweep path for grid-overlay meshes: prepare the lattice
-    ops dict and delegate to the shared ``sweepkernel.vmem_sweep_scan``.
-
-    ``mesh``: shard the config axis over the device mesh (shard_map, each
-    device runs the Pallas kernel on its shard — same parity as the
-    structured ``make_sweep_fn(mesh=...)``). ``num_steps`` overrides the
-    problem's step count (time-chunked execution). ``rtol_wrt``,
-    ``precondition`` ('jacobi'/'rline'/'adi') and ``f64_refine`` mirror the
-    structured maker (shared scan — see vmem_sweep_scan).
-
-    ``record_gradient``: artifact-parity recording — the per-step
-    r-weighted gradient projection also runs through the batched VMEM
-    kernel on the overlay lattice (vmem_sweep_scan record=...); the built
-    function then returns the {watch, band, axis} dict instead of bare
-    traces (no segment API in this mode)."""
-    from heatflow_tpu.ops.overlay import node_to_lattice
-    from heatflow_tpu.ops.stencil import combine_operator
-    from heatflow_tpu.sim.sweepkernel import vmem_sweep_scan
-
-    prep = _overlay_prep(problem)
-    if prep is None:
-        raise ValueError("solver='vmem' needs a grid-overlay mesh (the "
-                         "VMEM sweep kernel is stencil-form only)")
-    idx_np, _inv_np, oshape, stn = prep
-    nz, nr = oshape
-    if jax.default_backend() == "tpu":
-        if dtype != jnp.float32:
-            raise ValueError("the VMEM kernel is f32-only on TPU")
-        from heatflow_tpu.ops.pallas_cg import fits_in_vmem_batched
-        if not fits_in_vmem_batched(nz, nr, dtype, n_points=9,
-                                    rline=precondition == "rline",
-                                    adi=precondition == "adi"):
-            raise ValueError(
-                f"sweep working set for the {nz}x{nr} overlay exceeds the "
-                "VMEM budget; use solver='xla'")
-    if precondition not in ("jacobi", "rline", "adi"):
-        raise ValueError("solver='vmem' supports precondition='jacobi', "
-                         "'rline' or 'adi'")
-    if precondition in ("rline", "adi") and fixed_iters is not None:
-        raise ValueError(f"{precondition}-preconditioned vmem sweeps are "
-                         "tolerance-based (drop fixed_iters)")
-
-    # f64_refine carries fields/residuals in f64 (ops assembled at f64,
-    # f32 kernel operands cast inside the shared scan)
-    wdt = jnp.float64 if f64_refine else dtype
-    dt = jnp.asarray(problem.dt, wdt)
-    ic = jnp.asarray(problem.ic_temp, wdt)
-    K = jnp.asarray(stn["K"], wdt)            # (n_mats, 9, Nz, Nr)
-    M = jnp.asarray(stn["M"], wdt)
-    A0, M_op = combine_operator(K, M, jnp.asarray(problem.kappas, wdt),
-                                jnp.asarray(problem.rho_cvs, wdt), dt)
-    remap = lambda v: node_to_lattice(np.asarray(v), idx_np, oshape)
-    nodes = problem.mesh.nodes
-    ops = {
-        "A0": A0, "K_var": K[m_idx], "M_op": M_op,
-        "free": jnp.asarray(remap(~problem.dirichlet), wdt),
-        "dirich": jnp.asarray(remap(problem.dirichlet), wdt),
-        "r_sq": jnp.asarray(remap(nodes[:, 1] ** 2), wdt),
-        "base": jnp.asarray(remap(problem.heat_mask), wdt),
-        "heat_t": jnp.asarray(problem.heating.time, wdt),
-        "heat_T": jnp.asarray(problem.heating.temp, wdt),
-        "watch": jnp.asarray(idx_np[np.asarray(problem.watcher_nodes)]),
-    }
-    base_k = float(problem.kappas[m_idx])
-    num_steps = int(problem.num_steps if num_steps is None else num_steps)
-    extrapolate = warm_start == "extrapolate"
-
-    rec = None
-    if record_gradient:
-        if problem.band_nodes is None:
-            raise ValueError("gradient-recording sweeps need radial "
-                             "sampling on the problem")
-        # per-step projection through the batched VMEM kernel on the
-        # SAME lattice (the overlay embedding is a node permutation, so
-        # the lattice-form Mp/G computations equal the ELL ones)
-        Mp = jnp.asarray(stn["Mp"], wdt)
-        s_mp_lat = jax.lax.rsqrt(jnp.where(Mp[0] > 0, Mp[0], 1.0))
-        rec = {"Mp": Mp, "Gr": jnp.asarray(stn["G"], wdt),
-               "s_mp": s_mp_lat,
-               "band_nodes": jnp.asarray(
-                   idx_np[np.asarray(problem.band_nodes)]),
-               "band_bins": jnp.asarray(problem.band_bins),
-               "bin_counts": jnp.asarray(problem.bin_counts, dtype),
-               "axis_nodes": jnp.asarray(
-                   idx_np[np.asarray(problem.axis_nodes)])}
-
-    def core(ops, rec, ks, fs, u0, u_pp, step0):
-        return vmem_sweep_scan(ops, ks, fs, u0, u_pp, step0, dtype=dtype,
-                               ic=ic, dt=dt, num_steps=num_steps,
-                               base_k=base_k, fixed_iters=fixed_iters,
-                               rtol=rtol, maxiter=maxiter,
-                               extrapolate=extrapolate,
-                               rline=precondition == "rline",
-                               adi=precondition == "adi",
-                               rtol_wrt=rtol_wrt, f64_refine=f64_refine,
-                               record=rec, proj_rtol=proj_rtol,
-                               proj_maxiter=proj_maxiter)
-
-    if mesh is not None:
-        from jax import shard_map
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        rep = jax.tree.map(lambda _: P(), ops)
-        rep_rec = jax.tree.map(lambda _: P(), rec)
-        out0 = {k: P("config") for k in ("watch", "band", "axis")} \
-            if rec is not None else P("config")
-        core = shard_map(core, mesh=mesh,
-                         in_specs=(rep, rep_rec, P("config"), P("config"),
-                                   P("config"), P("config"), P()),
-                         out_specs=(out0, P("config"), P("config")),
-                         check_vma=False)
-
-    def _batched(ops, rec, ks, fs):
-        B = len(ks)
-        u0 = jnp.full((B, nz, nr), ic, wdt)
-        return core(ops, rec, ks, fs, u0, u0, jnp.asarray(0, wdt))[0]
-
-    def _batched_seg(ops, rec, ks, fs, u0, u_pp, step0):
-        return core(ops, rec, ks, fs, u0, u_pp, jnp.asarray(step0, wdt))
-
-    if mesh is None:
-        batched = jax.jit(_batched)
-        batched_seg = jax.jit(_batched_seg)
-    else:
-        from jax.sharding import NamedSharding, PartitionSpec as P
-        rep_sh = jax.tree.map(lambda _: NamedSharding(mesh, P()), ops)
-        rec_sh = jax.tree.map(lambda _: NamedSharding(mesh, P()), rec)
-        cfg_sh = NamedSharding(mesh, P("config"))
-        fld_sh = NamedSharding(mesh, P("config", None, None))
-        sc_sh = NamedSharding(mesh, P())
-        out0_sh = {k: cfg_sh for k in ("watch", "band", "axis")} \
-            if rec is not None else cfg_sh
-        batched = jax.jit(_batched,
-                          in_shardings=(rep_sh, rec_sh, cfg_sh, cfg_sh),
-                          out_shardings=out0_sh)
-        batched_seg = jax.jit(
-            _batched_seg,
-            in_shardings=(rep_sh, rec_sh, cfg_sh, cfg_sh, fld_sh, fld_sh,
-                          sc_sh),
-            out_shardings=(out0_sh, fld_sh, fld_sh))
-
-    def simulate_batch(sample_k, fwhm):
-        out = batched(ops, rec, jnp.asarray(sample_k, wdt),
-                      jnp.asarray(fwhm, wdt))
-        if rec is not None:
-            out = dict(out)
-            out["times"] = np.arange(1, num_steps + 1) * problem.dt
-        return out
-
-    def segment(sample_k, fwhm, u0, step0, u_pp=None):
-        """(traces, u_fin, u_penultimate) for one time chunk — identical
-        contract to the structured ``make_sweep_fn(...).segment`` (fields
-        live on the overlay lattice)."""
-        u0 = jnp.asarray(u0, wdt)
-        u_pp = u0 if u_pp is None else jnp.asarray(u_pp, wdt)
-        return batched_seg(ops, rec, jnp.asarray(sample_k, wdt),
-                           jnp.asarray(fwhm, wdt), u0, u_pp,
-                           jnp.asarray(step0, wdt))
-
-    simulate_batch.segment = segment
-    simulate_batch.shape = (nz, nr)
-    simulate_batch.ic_temp = float(problem.ic_temp)
-    simulate_batch.dt = float(problem.dt)
-    simulate_batch.times = (np.arange(1, num_steps + 1) * problem.dt)
-    simulate_batch.watcher_names = list(problem.watcher_names)
-    if record_gradient:
-        simulate_batch.band_centers = problem.bin_centers
-        simulate_batch.axis_z = problem.axis_z
-    return simulate_batch
-
-
 def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
                                vary_material: str = "p_sample",
                                dtype=jnp.float32, rtol: float = 1e-6,
                                maxiter: int = 4000,
                                fixed_iters: int | None = None,
                                warm_start: str = "previous",
-                               solver: str = "xla",
+                               solver: str = "auto",
                                record_gradient: bool = False,
-                               num_steps: int | None = None,
                                mesh=None, rtol_wrt: str = "b",
                                precondition: str = "jacobi",
                                f64_refine: int = 0):
@@ -745,39 +448,31 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
     simulate_batch(sample_k (B,), fwhm (B,)) -> watcher traces (B, S, W) —
     the unstructured mirror of ``sweepkernel.make_sweep_fn`` (one vmapped
     scan instead of one process per config, ref parameter_sweep.py:436-446).
-    Differentiable in both inputs. Memoized per problem like the structured
-    maker.
-
-    ``solver='vmem'`` (grid-overlay meshes only): the exactly-assembled
-    unstructured operator, in its permuted-9-point-stencil lattice form,
-    runs through the same per-config VMEM Pallas kernels as structured
-    sweeps — fixed budget with ``fixed_iters``, tolerance-based to ``rtol``
-    otherwise. Imported-gmsh sweeps at VMEM speed.
+    Differentiable in both inputs (except under ``f64_refine``). Memoized
+    per problem like the structured maker.
 
     ``record_gradient=True``: each config additionally
     accumulates band/axis radial-gradient rows (the reference's per-run
     gradient CSVs, ref run_no_diamond.py:602-617); ``simulate_batch`` then
-    returns the full dict instead of bare traces. With ``solver='vmem'``
-    both the solve and the projection run through the batched Pallas
-    kernel on the overlay lattice.
+    returns the full dict instead of bare traces.
 
     ``mesh``: shard the config axis over the device mesh — unstructured
     sweeps fan out across chips exactly like structured ones (the
     reference's pool is mesh-kind-agnostic, ref parameter_sweep.py:436-446).
     Batch sizes must be a multiple of the 'config' axis (callers pad).
-    ``num_steps`` overrides the chunk length for segmented execution
-    (``.segment`` — solver='vmem' overlay path).
 
-    ``rtol_wrt``, ``precondition`` ('jacobi'/'rline'/'adi', vmem) and
-    ``f64_refine`` (vmem, f32+x64: mixed-precision f64-residual refinement
-    per lane) mirror the structured ``make_sweep_fn``."""
+    ``rtol_wrt``, ``precondition`` ('jacobi' only, as in
+    :func:`make_simulate_fn_unstructured`) and ``f64_refine`` (f32+x64:
+    mixed-precision f64-residual refinement per lane) mirror the
+    structured ``make_sweep_fn``."""
     if f64_refine:
         # refined inner solves stop wrt their own per-pass residual; the
         # outer rtol_wrt has no effect — normalize it out of the cache key
         rtol_wrt = "b"
+    solver = resolve_solver(solver)
     cache_key = ("sweep_fn", vary_material, jnp.dtype(dtype).name, rtol,
                  maxiter, fixed_iters, warm_start, solver, record_gradient,
-                 num_steps, mesh, rtol_wrt, precondition, f64_refine)
+                 mesh, rtol_wrt, precondition, f64_refine)
     cache = problem.__dict__.setdefault("_fn_cache", {})
     if cache_key in cache:
         return cache[cache_key]
@@ -791,42 +486,11 @@ def make_sweep_fn_unstructured(problem: ProblemUnstructured, *,
     if problem.watcher_nodes is None:
         raise ValueError("sweeps need watcher points on the problem")
 
-    if solver == "vmem":
-        if record_gradient and num_steps is not None:
-            raise ValueError("recording sweeps run unsegmented (no "
-                             "num_steps)")
-        if f64_refine:
-            if jnp.dtype(dtype) != jnp.float32:
-                raise ValueError("f64_refine is the mixed-precision mode: "
-                                 "dtype must be float32")
-            if not jax.config.jax_enable_x64:
-                raise ValueError("f64_refine needs jax_enable_x64=True")
-            if fixed_iters is not None:
-                raise ValueError("f64_refine composes with the "
-                                 "tolerance-based solve (drop fixed_iters)")
-        simulate_batch = _sweep_vmem_unstructured(
-            problem, m_idx, dtype=dtype, rtol=rtol, maxiter=maxiter,
-            fixed_iters=fixed_iters, warm_start=warm_start,
-            num_steps=num_steps, mesh=mesh, rtol_wrt=rtol_wrt,
-            precondition=precondition, f64_refine=f64_refine,
-            record_gradient=record_gradient)
-        cache[cache_key] = simulate_batch
-        return simulate_batch
-    if solver != "xla":
-        raise ValueError(f"unknown solver {solver!r}")
-    if num_steps is not None:
-        raise ValueError("segmented (num_steps=...) unstructured sweeps "
-                         "run through solver='vmem' (overlay meshes)")
-    if f64_refine and not record_gradient:
-        raise ValueError("f64_refine sweeps run through solver='vmem' "
-                         "(the batched VMEM correction kernel); the XLA "
-                         "path refines only with record_gradient (the "
-                         "vmapped full stepper)")
-
     fn = make_simulate_fn_unstructured(
         problem, dtype=dtype, rtol=rtol, maxiter=maxiter,
         fixed_iters=fixed_iters, record_gradient=record_gradient,
-        differentiable=fixed_iters is None and not record_gradient,
+        differentiable=(fixed_iters is None and not record_gradient
+                        and not f64_refine),
         warm_start=warm_start, rtol_wrt=rtol_wrt,
         precondition=precondition, f64_refine=f64_refine)
     # refine carries fields/coefficients in f64 (the stepper's cdt)

@@ -7,6 +7,7 @@ same summaries exist in the drivers plus real profiler traces on demand.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 
@@ -61,66 +62,74 @@ def pad_to_multiple(arr, m: int):
     return arr
 
 
+def resolve_solver(solver: str) -> str:
+    """The engine a ``solver`` option names. The XLA engine (``ops/cg.py``
+    CG with the ``ops/linesolve.py`` / ``ops/multigrid.py``
+    preconditioners, vmapped for sweeps) is the only one, on every backend,
+    dtype, preconditioner and mesh kind: 'auto' and 'xla' both name it."""
+    if solver not in ("auto", "xla"):
+        raise ValueError(f"unknown solver {solver!r}: the XLA engine is the "
+                         "only one ('auto' or 'xla')")
+    return "xla"
+
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory:
+    ``$JAX_COMPILATION_CACHE_DIR`` when set (JAX reads it itself, and no
+    other directory is set), else ``<checkout>/.jax_cache`` — a fixed path,
+    since a cache directory that moves is never hit again."""
+    import jax
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        path = os.path.join(root, ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+    return path
+
+
 def resolve_recording_precondition(record_gradient: bool, dtype,
-                                   *, unstructured_xla: bool = False,
-                                   fixed_iters=None,
+                                   *, fixed_iters=None,
                                    batched: bool = False,
                                    unstructured: bool = False,
                                    f64_refine: int = 0,
-                                   vmem_single: bool = False,
                                    rtol_wrt: str = "r0") -> str:
-    """Driver-default CG preconditioner per regime (all measured,
-    BENCHMARKS.md "ADI regime map" / "adaptive rline/adi switch").
+    """Driver-default CG preconditioner per regime.
 
     Structured SINGLE runs at f32 with tolerance stopping get a line
-    preconditioner regardless of recording (round 4 — previously only
-    recording runs were upgraded):
+    preconditioner regardless of recording:
 
     - plain pure-f32: **'adi'** — under wrt-r0 stopping with extrapolated
-      seeds rline grinds near the f32 floor on late steps (171-274
-      iters/step) while adi converges before the floor bites (+64%
-      steps/s measured; the adaptive switch would oscillate back into
-      the grinding rline steps here, so static adi is right). Measured
-      ONLY under the driver's wrt-'r0' stopping: a non-default
-      ``rtol_wrt`` falls back to rline (recording) / jacobi, since adi's
-      unconverged error under loose wrt-'b' stopping is ~20x
-      jacobi/rline's at equal rtol;
+      seeds rline grinds near the f32 floor on late steps while adi
+      converges before the floor bites. Chosen ONLY under the driver's
+      wrt-'r0' stopping: a non-default ``rtol_wrt`` falls back to rline
+      (recording) / jacobi, since adi's unconverged error under loose
+      wrt-'b' stopping is far larger than jacobi/rline's at equal rtol;
     - with ``f64_refine`` (inner solves unit-normalized — no floor
-      grind): **'adaptive'** when the VMEM path will engage
-      (``vmem_single=True``) — the per-step rline/adi switch, +4.4% over
-      static rline at identical accuracy (the promoted official point);
-      'rline' otherwise (the adaptive switch exists only as the two VMEM
-      kernel variants).
+      grind): **'rline'**.
 
     Recording runs additionally NEED the line preconditioner for
     artifact quality: jacobi-CG's unconverged f32 error concentrates in
     exactly the near-axis radial modes the gradient artifacts amplify by
     ~1/h_r — the raw-axis CSV (ref run_no_diamond.py:610-617) picks up
-    spurious spikes ~44x the rline engine's at the same rtol.
+    spurious spikes.
 
-    Batched sweeps and overlay meshes keep 'rline' when recording (adi
-    measured 15-19% SLOWER on every batched sweep row — the batched
-    kernels re-factor the stacks per config per solve) and 'jacobi' for
-    plain sweeps (rline measured accuracy-matched neutral in the
-    wrt-‖b‖ sweep regime). f64 runs converge past every such
-    sensitivity and keep 'jacobi'; a fixed iteration budget keeps
-    'jacobi' (the vmem line kernels are tolerance-based); the
-    unstructured XLA path keeps 'jacobi' (its rline engine is the
-    overlay VMEM kernel, ``unstructured_xla=True``).
+    Batched sweeps keep 'rline' when recording and 'jacobi' for plain
+    sweeps. f64 runs converge past every such sensitivity and keep
+    'jacobi'; a fixed iteration budget keeps 'jacobi'; unstructured
+    meshes keep 'jacobi' (the XLA engine has no line solve on them).
+
+    These defaults were chosen from measurements on the previous
+    accelerator; re-ranking them on the GPU is open work (ROADMAP).
     """
     import jax.numpy as jnp
     if not (jnp.dtype(dtype) == jnp.float32 and fixed_iters is None
-            and not unstructured_xla):
+            and not unstructured):
         return "jacobi"
-    if batched or unstructured:
+    if batched:
         return "rline" if record_gradient else "jacobi"
     if f64_refine:
-        return "adaptive" if vmem_single else "rline"
+        return "rline"
     if rtol_wrt != "r0":
-        # the 'adi' single-run default is measured only under the driver's
-        # increment-relative (wrt-'r0') stopping; with a user-specified
-        # loose wrt-'b' rule adi's unconverged error is ~20x jacobi/rline's
-        # at equal rtol (cg_vmem_batched_tol docstring) — keep the
-        # accuracy-safe preconditioners there
         return "rline" if record_gradient else "jacobi"
     return "adi"

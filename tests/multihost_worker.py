@@ -71,19 +71,18 @@ utraces = multihost.run_sweep_multihost(uproblem, ks, fs, fixed_iters=10,
                                         dtype=np.float64)
 assert utraces.shape == (6, 4, 2), utraces.shape
 
-# mixed-precision refined sweep over the 2-process mesh (vmem engine,
-# f32 lanes + f64-operator residual refinement — sweepkernel f64_refine)
+# mixed-precision refined sweep over the 2-process mesh (f32 lanes +
+# f64-operator residual refinement)
 import jax.numpy as jnp  # noqa: E402
 
 rtraces = multihost.run_sweep_multihost(uproblem, ks, fs,
                                         dtype=jnp.float32, rtol=1e-5,
-                                        maxiter=4000, solver="vmem",
-                                        f64_refine=2)
+                                        maxiter=4000, f64_refine=2)
 assert rtraces.shape == (6, 4, 2), rtraces.shape
 assert np.isfinite(rtraces).all()
 utruth = multihost.run_sweep_multihost(uproblem, ks, fs,
                                        dtype=np.float64, rtol=1e-11,
-                                       maxiter=8000, solver="vmem")
+                                       maxiter=8000)
 assert np.abs(rtraces - utruth).max() < 1e-3  # refined ≡ f64 per lane
 
 if rank == 0:

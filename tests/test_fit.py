@@ -143,13 +143,14 @@ def test_resolve_fit_solver_defaults():
     assert (rtol, wrt, pre) == (1e-10, "b", "jacobi")
     rtol, wrt, solver, pre = resolve_fit_solver(jnp.float32, None, None,
                                                 "auto", None)
-    # xla+jacobi: the measured-fastest end-to-end recipe (vmapped
-    # multi-start lock-step amortization + compile-cache behavior — see
-    # resolve_fit_solver docstring / BENCHMARKS.md)
+    # the XLA engine with jacobi scaling by default
     assert (rtol, wrt, solver, pre) == (1e-5, "r0", "xla", "jacobi")
     # explicit settings pass through untouched
-    assert resolve_fit_solver(jnp.float32, 1e-6, "b", "vmem", "adi") == \
-        (1e-6, "b", "vmem", "adi")
+    assert resolve_fit_solver(jnp.float32, 1e-6, "b", "xla", "adi") == \
+        (1e-6, "b", "xla", "adi")
+    # the retired Pallas engine's name is rejected
+    with pytest.raises(ValueError, match="unknown solver"):
+        resolve_fit_solver(jnp.float32, None, None, "vmem", None)
 
 
 def test_fit_f32_defaults_converge(problem_with_target):
@@ -173,16 +174,16 @@ def test_fit_f32_defaults_converge(problem_with_target):
 
 
 def test_one_config_vmem_differentiable(problem_with_target):
-    """make_sweep_fn(solver='vmem').one_config routes through the
-    differentiable VMEM kernel (pallas_cg.cg_vmem_solve): values match the
-    XLA path and gradients match finite differences — the engine-speed
-    implicit-diff path the fit uses on TPU (VERDICT r3 item 1b)."""
+    """make_sweep_fn(precondition='rline').one_config is differentiable
+    through the line-preconditioned implicit-diff solve: values match the
+    jacobi path and gradients match finite differences — the path the fit
+    takes with --precondition rline."""
     import jax
 
     problem = problem_with_target
     fn_x = make_sweep_fn(problem, dtype=jnp.float64, rtol=1e-11)
     fn_v = make_sweep_fn(problem, dtype=jnp.float64, rtol=1e-11,
-                         solver="vmem", precondition="rline")
+                         precondition="rline")
     tr_x = np.asarray(fn_x.one_config(K_TRUE, FWHM_TRUE))
     tr_v = np.asarray(fn_v.one_config(K_TRUE, FWHM_TRUE))
     np.testing.assert_allclose(tr_v, tr_x, rtol=1e-8)
@@ -197,7 +198,7 @@ def test_one_config_vmem_differentiable(problem_with_target):
 
     # the adi-preconditioned variant solves to the same answer
     fn_a = make_sweep_fn(problem, dtype=jnp.float64, rtol=1e-11,
-                         solver="vmem", precondition="adi")
+                         precondition="adi")
     np.testing.assert_allclose(np.asarray(fn_a.one_config(K_TRUE,
                                                           FWHM_TRUE)),
                                tr_x, rtol=1e-8)

@@ -48,7 +48,7 @@ def test_pcr_solves_tridiagonal_exactly():
 
 def test_pcr_fold_matches_raw_apply_and_exact_solve():
     """The folded factorization (2 coupling planes/level + one accumulated
-    diagonal — the hot-path layout used by the VMEM kernel's _pcr_precond)
+    diagonal — the layout the line preconditioners apply)
     is the same operator as the raw (l, u, inv_a)-per-level form."""
     rng = np.random.default_rng(7)
     for n in (1, 2, 3, 7, 64, 253):
@@ -73,41 +73,6 @@ def test_pcr_fold_matches_raw_apply_and_exact_solve():
     levels2_t, g_t = pcr_fold(levels_t, axis=-2)
     out_t = pcr_apply_folded(levels2_t, g_t, jnp.asarray(D.T), axis=-2)
     np.testing.assert_allclose(np.asarray(out_t).T, X, rtol=1e-9, atol=1e-9)
-
-
-def test_pcr_pack_layout_matches_kernel_contract():
-    """pcr_pack returns (2L+1, Nz, Nr): rows 2k/2k+1 the level-k rescaled
-    couplings, last row the accumulated diagonal — the layout
-    _pcr_precond unrolls. Reconstruct the apply from the packed planes and
-    match line_preconditioner."""
-    from heatflow_tpu.ops.pallas_cg import pcr_pack, rline_extra_planes
-    from heatflow_tpu.ops.stencil import combine_operator
-    problem = _tiny_problem()
-    dev = problem.device_arrays(jnp.float64)
-    A, _ = combine_operator(dev["K"], dev["M"], dev["kappas"],
-                            dev["rho_cvs"], jnp.asarray(problem.dt))
-    free, dirich = dev["free"], dev["dirichlet"]
-    s = jax.lax.rsqrt(jnp.where(A[0] > 0, A[0], 1.0)) * free + dirich
-    packed = np.asarray(pcr_pack(A, s, free))
-    nr = free.shape[1]
-    assert packed.shape[0] == rline_extra_planes(nr)
-    n_levels = (packed.shape[0] - 1) // 2
-
-    rng = np.random.default_rng(11)
-    r = rng.standard_normal(free.shape) * np.asarray(free)
-    d = r.copy()
-    shift = lambda v, k: np.roll(v, k, axis=-1) * (
-        (np.arange(nr) >= k) if k >= 0 else (np.arange(nr) < nr + k))
-    step = 1
-    for k in range(n_levels):
-        d = (d - packed[2 * k] * shift(d, step)
-             - packed[2 * k + 1] * shift(d, -step))
-        step *= 2
-    x_packed = packed[2 * n_levels] * d * np.asarray(free)
-
-    pre = line_preconditioner(A, s, free, axis=-1)
-    np.testing.assert_allclose(x_packed, np.asarray(pre(jnp.asarray(r))),
-                               rtol=1e-9, atol=1e-9)
 
 
 def test_pcr_vectorizes_over_rows_and_axis_choice():
@@ -222,7 +187,7 @@ def test_rline_stepper_matches_jacobi_stepper():
 def test_adi_preconditioner_cuts_iterations_and_matches_solution():
     """Split-additive ADI (R + Z − I): same solution, fewer iterations than
     rline alone on cold solves (the steady/tight-tolerance regime it is
-    for — benchmarks/expt_adi_probe.py has the flagship numbers)."""
+    for)."""
     from heatflow_tpu.ops.cg import pcg
     from heatflow_tpu.ops.linesolve import adi_preconditioner
     from heatflow_tpu.ops.stencil import apply_stencil, combine_operator

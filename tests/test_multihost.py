@@ -1,5 +1,5 @@
 """Real multi-process ('multi-host') execution: two OS processes join one
-jax.distributed runtime over localhost (the CPU stand-in for a TPU pod's
+jax.distributed runtime over localhost (the CPU stand-in for a multi-host cluster's
 DCN), shard a production sweep batch over the global 8-device mesh, and the
 gathered traces must match a single-process run."""
 

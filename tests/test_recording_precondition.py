@@ -1,17 +1,13 @@
 """Round-3 fixes, part 2: the f32 recording-run preconditioner default.
 
-Measured on TPU (benchmarks/diag_axis_projection.py + bench_recording.py):
-at f32, jacobi-CG's unconverged error concentrates in exactly the near-axis
-radial modes the gradient artifacts amplify by ~1/h_r — the raw-axis CSV
-(ref run_no_diamond.py:610-617) picks up spurious spikes ~44x the rline
-engine's at the same rtol (1.2e7 vs 2.7e5 K/m on the 243k-node
-geballe_no_diamond mesh), while the per-step projection solve itself
-converges fine either way (18 iters mean). rline is also the faster VMEM
-recording engine (45.8 vs 43.5 configs/s). So f32 gradient-recording runs
-now default to precondition='rline' in both drivers
+At f32, jacobi-CG's unconverged error concentrates in exactly the
+near-axis radial modes the gradient artifacts amplify by ~1/h_r — the
+raw-axis CSV (ref run_no_diamond.py:610-617) picks up spurious spikes far
+above the rline engine's at the same rtol, while the per-step projection
+solve itself converges fine either way. So f32 gradient-recording runs
+default to a line preconditioner in both drivers
 (utils.resolve_recording_precondition), and the recording sweep maker
-actually threads ``precondition`` to its XLA engine (it was silently
-dropped before).
+threads ``precondition`` to its engine (it was silently dropped before).
 """
 
 import json
@@ -28,37 +24,28 @@ from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
 
 def test_resolve_recording_precondition_matrix():
     f32, f64 = jnp.float32, jnp.float64
-    # structured single runs: adi (+53% at same-class artifact error vs
-    # rline — benchmarks/expt_adi_record.py)
+    # structured single runs: adi
     assert resolve_recording_precondition(True, f32) == "adi"
-    # batched sweeps / overlay meshes: their VMEM kernels factor lines
-    # in-kernel along r only — rline
+    # batched sweeps: rline
     assert resolve_recording_precondition(True, f32, batched=True) \
-        == "rline"
-    assert resolve_recording_precondition(True, f32, unstructured=True) \
         == "rline"
     # f64 converges past the artifact sensitivity — keep jacobi
     assert resolve_recording_precondition(True, f64) == "jacobi"
-    # watcher-only STRUCTURED SINGLE runs (round 4): adi — in the
-    # pure-f32 wrt-r0 regime rline grinds near the floor on late steps
-    # while adi converges first (+64% steps/s, BENCHMARKS.md ADI regime
-    # map); plain SWEEPS keep jacobi (rline/adi measured neutral/slower
-    # in the batched wrt-b regime)
+    # watcher-only STRUCTURED SINGLE runs: adi — in the pure-f32 wrt-r0
+    # regime rline grinds near the floor on late steps while adi
+    # converges first; plain SWEEPS keep jacobi
     assert resolve_recording_precondition(False, f32) == "adi"
     assert resolve_recording_precondition(False, f32,
                                           batched=True) == "jacobi"
-    # refined structured singles: the per-step rline/adi switch when the
-    # VMEM path engages (the promoted official recipe), rline otherwise
-    assert resolve_recording_precondition(False, f32, f64_refine=1,
-                                          vmem_single=True) == "adaptive"
-    assert resolve_recording_precondition(True, f32, f64_refine=1,
-                                          vmem_single=True) == "adaptive"
+    # refined structured singles: rline
+    assert resolve_recording_precondition(True, f32, f64_refine=1) \
+        == "rline"
     assert resolve_recording_precondition(False, f32,
                                           f64_refine=1) == "rline"
-    # the unstructured XLA path has no rline
+    # the unstructured engine has no line solve
     assert resolve_recording_precondition(True, f32,
-                                          unstructured_xla=True) == "jacobi"
-    # vmem rline is tolerance-based: fixed budgets keep jacobi
+                                          unstructured=True) == "jacobi"
+    # fixed budgets keep jacobi
     assert resolve_recording_precondition(True, f32,
                                           fixed_iters=50) == "jacobi"
 
@@ -162,9 +149,9 @@ def test_sweep_driver_resolves_recording_precondition(tmp_path, dtype,
 
 
 def test_recording_vmem_adi_matches_jacobi_on_converged_solves(tmp_path):
-    """The adi-preconditioned VMEM recording sweep (both line stacks
-    factored in-kernel per config) produces the same artifacts as the
-    jacobi VMEM recording engine when both are converged."""
+    """The adi-preconditioned recording sweep (both line stacks factored
+    per config) produces the same artifacts as the jacobi recording
+    engine when both are converged."""
     from heatflow_tpu.sim.sweepkernel import make_sweep_fn_recording
 
     _, problem = _tiny_problem(tmp_path)
@@ -173,7 +160,7 @@ def test_recording_vmem_adi_matches_jacobi_on_converged_solves(tmp_path):
     arts = {}
     for prec in ("jacobi", "adi"):
         fn = make_sweep_fn_recording(problem, dtype=jnp.float32, rtol=1e-6,
-                                     solver="vmem", precondition=prec)
+                                     precondition=prec)
         ys = fn(ks, fs)
         arts[prec] = {k: np.asarray(ys[k]) for k in ("watch", "band", "axis")}
     # same per-family tolerance ladder as the rline twin above

@@ -1,11 +1,9 @@
 """Mixed-precision iterative refinement (make_simulate_fn(f64_refine=N)).
 
-The round-3 floor isolation (BENCHMARKS.md) showed the f32 trace error is
-the f32 *operator-representation* floor — not accumulation, not CG
-truncation. Refinement computes each step's residual against the f64
-operator and solves only the f32 correction system, so the converged
-trajectory is the f64 operator's solution at f32 solve speed (measured
-0.007 K peak flagship error at 249 steps/s vs 3.4 steps/s all-f64). These
+The f32 trace error is the f32 *operator-representation* floor — not
+accumulation, not CG truncation. Refinement computes each step's residual
+against the f64 operator and solves only the f32 correction system, so the
+converged trajectory is the f64 operator's solution at f32 solve cost. These
 tests pin the mechanism at small scale on CPU: the refined f32 run must
 land orders of magnitude closer to the f64 trajectory than the plain f32
 run at the same inner tolerance."""
@@ -127,19 +125,17 @@ def test_refine_validation():
 
 def test_refined_unstructured_matches_f64(tiny_unstructured):
     """Unstructured (overlay) twin: f64_refine lands orders closer to the
-    f64 trajectory than plain f32 at the same inner tolerance, through
-    both the ELL/XLA and the overlay-VMEM (interpreter) inner engines."""
+    f64 trajectory than plain f32 at the same inner tolerance."""
     problem, truth = tiny_unstructured
     plain = make_simulate_fn_unstructured(
         problem, dtype=jnp.float32, rtol=1e-5, rtol_wrt="r0",
         record_gradient=False)()
     e_plain = _trace_err(plain, truth)
-    for solver in ("xla", "vmem"):
-        ys = make_simulate_fn_unstructured(
-            problem, dtype=jnp.float32, rtol=1e-4, solver=solver,
-            record_gradient=False, f64_refine=2)()
-        e_ref = _trace_err(ys, truth)
-        assert e_ref < e_plain / 20, (solver, e_ref, e_plain)
+    ys = make_simulate_fn_unstructured(
+        problem, dtype=jnp.float32, rtol=1e-4, record_gradient=False,
+        f64_refine=2)()
+    e_ref = _trace_err(ys, truth)
+    assert e_ref < e_plain / 20, (e_ref, e_plain)
     with pytest.raises(ValueError, match="float32"):
         make_simulate_fn_unstructured(problem, dtype=jnp.float64,
                                       f64_refine=1)

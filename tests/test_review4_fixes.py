@@ -12,14 +12,11 @@
    must be zeroed on degenerate refinement passes — the rtol_eff=2 early
    stop assumes the solve starts AT the rhs residual.
 4. ``run_sweep_multihost`` forwards solver/precondition to the structured
-   recording branch (an explicit solver='vmem' was silently dropped) and
-   raises on num_steps for unstructured XLA sweeps (silently returned
-   full-transient traces).
+   recording branch (an explicit solver was silently dropped) and raises
+   on num_steps for unstructured sweeps (silently returned full-transient
+   traces).
 5. ``run2d --z-shards`` on an unstructured mesh raises instead of silently
    running unsharded.
-6. ``cg_vmem_batched_tol(Kv=None)``: the config-independent projection
-   solve drops the varying-stencil operand instead of streaming n_points
-   zero planes into VMEM per call — results identical to Kv=zeros.
 """
 
 import jax
@@ -162,13 +159,14 @@ def test_refined_carry_seed_stops_on_forced_degenerate_pass(tiny_problem,
     gating itself is pinned by test_refine_inner_seed_zeroes_degenerate_
     passes — here the carries are zero-initialized, so this asserts the
     carry path composes with the guard end-to-end."""
-    import heatflow_tpu.sim.stepper as stepper_mod
+    import heatflow_tpu.ops.cg as cg_mod
     from heatflow_tpu.sim.stepper import make_simulate_fn
     _cfg, problem = tiny_problem
     if not jax.config.jax_enable_x64:
         pytest.skip("needs x64")
 
-    monkeypatch.setattr(stepper_mod, "refine_inner_scale",
+    # the refined solve (ops.cg.refined_solve) takes its guard from ops.cg
+    monkeypatch.setattr(cg_mod, "refine_inner_scale",
                         lambda rn2, floor2, rtol, dtype:
                         (jnp.ones_like(rn2), jnp.asarray(2.0, dtype)))
     fn = make_simulate_fn(problem, dtype=jnp.float32, f64_refine=2,
@@ -197,9 +195,9 @@ def test_multihost_recording_branch_forwards_solver(tiny_problem,
     monkeypatch.setattr(sk, "make_sweep_fn_recording", spy)
     out = run_sweep_multihost(problem, np.array([3.0]), np.array([4e-6]),
                               dtype=jnp.float64, rtol=1e-8,
-                              record_gradient=True, solver="vmem",
+                              record_gradient=True, solver="xla",
                               precondition="jacobi")
-    assert seen.get("solver") == "vmem"
+    assert seen.get("solver") == "xla"
     assert seen.get("precondition") == "jacobi"
     assert np.isfinite(out["watch"]).all()
     assert np.isfinite(out["band"]).all() and np.isfinite(out["axis"]).all()
@@ -239,35 +237,3 @@ def test_run2d_z_shards_unstructured_raises(tmp_path):
                        output_folder=str(tmp_path / "out"),
                        mesh_style="unstructured", z_shards=2,
                        suppress_print=True)
-
-
-# ---------------------------------------------------------------- 6.
-
-def test_batched_tol_kernel_kv_none_matches_zero_kv():
-    from heatflow_tpu.ops.cg import pcg
-    from heatflow_tpu.ops.pallas_cg import cg_vmem_batched_tol
-    rng = np.random.default_rng(1)
-    B, nz, nr = 3, 8, 16
-    # an SPD 7-point operator: diagonally dominant random stencil
-    A0 = np.zeros((7, nz, nr))
-    off = rng.uniform(-0.1, 0.0, (6, nz, nr))
-    A0[1:] = off
-    A0[0] = 1.0 + np.abs(off).sum(axis=0)
-    A0 = jnp.asarray(A0)
-    sm = jnp.asarray(np.ones((B, nz, nr)))
-    b = jnp.asarray(rng.normal(size=(B, nz, nr)))
-    x0 = jnp.zeros((B, nz, nr))
-    dks = jnp.zeros((B,))
-    x_zero, it_zero = cg_vmem_batched_tol(
-        A0, jnp.zeros_like(A0), dks, sm, b, x0, 1e-10, maxiter=500,
-        interpret=True)
-    x_none, it_none = cg_vmem_batched_tol(
-        A0, None, dks, sm, b, x0, 1e-10, maxiter=500, interpret=True)
-    np.testing.assert_array_equal(np.asarray(x_zero), np.asarray(x_none))
-    np.testing.assert_array_equal(np.asarray(it_zero), np.asarray(it_none))
-    # and both agree with the XLA reference solve
-    from heatflow_tpu.ops.stencil import apply_stencil
-    ref = pcg(lambda v: apply_stencil(A0, v), b[0], x0[0], rtol=1e-10,
-              maxiter=500).x
-    np.testing.assert_allclose(np.asarray(x_none[0]), np.asarray(ref),
-                               rtol=0, atol=1e-8)

@@ -1,17 +1,19 @@
-"""Round-3 fixes, part 1: the f32 TPU B>=2 batched-operator divergence.
+"""Round-3 fixes, part 1: the f32 B>=2 batched-operator divergence.
 
 Root cause (round-3 diagnosis): the material contraction in
 ``combine_operator`` (and the ELL/tridiag variants), written as
-``jnp.einsum("...m,mkij->...kij", coeffs, S)``, lowers on XLA:TPU to an MXU
-dot_general at DEFAULT precision — bf16-truncated inputs — *only when the
+``jnp.einsum("...m,mkij->...kij", coeffs, S)``, lowers on an accelerator to
+a matrix-unit dot_general at DEFAULT precision — reduced-precision inputs
+(bf16 or TF32) — *only when the
 coefficient array is batched* (B >= 2); at B = 1 the degenerate dot
 simplifies to full-f32 multiply-adds. The resulting ~4e-3 relative
 perturbation of the backward-Euler operator (scaled condition ~1e6) makes it
 indefinite, so CG diverges identically on every lane of a batched sweep
 while the same single config converges (ref sweep semantics:
-parameter_sweep.py:157-166). Fix: statically-unrolled VPU multiply-add
+parameter_sweep.py:157-166). Fix: statically-unrolled elementwise multiply-add
 (``ops.stencil.material_combine``). These tests pin the fix at the lowering
-level, which reproduces on CPU where the numeric failure does not.
+level, which reproduces on CPU where the numeric failure does not; the
+compiled form on a GPU is checked by heatflow_tpu.devicecheck.
 """
 
 import jax
@@ -57,7 +59,7 @@ def test_batched_combine_matches_per_lane_bitwise():
 
 def _assert_no_dot(lowered_text, label):
     assert "dot_general" not in lowered_text and "dot(" not in lowered_text, \
-        f"{label} lowers to a dot — bf16-precision trap on TPU (see module " \
+        f"{label} lowers to a dot — reduced-precision trap (see module " \
         "docstring)"
 
 

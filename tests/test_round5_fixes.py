@@ -1,12 +1,10 @@
-"""Round-5 advisor-fix regressions: sweep group-cache staleness, the
-adaptive+cheb validation, and the rtol_wrt-aware precondition resolution
-(ADVICE.md round 4)."""
+"""Round-5 fix regressions: sweep group-cache staleness, the rejection of
+the retired per-step preconditioner options, and the rtol_wrt-aware
+precondition resolution."""
 
 import jax.numpy as jnp
 import numpy as np
-import pandas as pd
 import pytest
-import yaml
 
 from heatflow_tpu.utils import resolve_recording_precondition
 from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
@@ -42,8 +40,9 @@ def test_group_cache_invalidates_on_heating_rewrite(tmp_path):
 
 
 def test_adaptive_rejects_cheb_degree():
-    """precondition='adaptive' must refuse vmem_cheb_degree instead of
-    silently dropping it in the lax.cond branches (ADVICE r4 low)."""
+    """The retired options are rejected, not silently ignored:
+    precondition='adaptive' is unknown and vmem_cheb_degree is no
+    parameter of the stepper."""
     from heatflow_tpu.geometry import build_layout
     from heatflow_tpu.mesh.structured import build_structured_mesh
     from heatflow_tpu.sim.bc import HeatingCurve
@@ -59,9 +58,12 @@ def test_adaptive_rejects_cheb_degree():
     domain, mats = build_layout(cfg)
     mesh = build_structured_mesh(domain, mats)
     problem = build_problem(mesh, heating, cfg)
-    with pytest.raises(ValueError, match="adaptive"):
+    with pytest.raises(ValueError, match="unknown precondition"):
         make_simulate_fn(problem, dtype=jnp.float32,
-                         precondition="adaptive", vmem_cheb_degree=2)
+                         precondition="adaptive")
+    with pytest.raises(TypeError, match="vmem_cheb_degree"):
+        make_simulate_fn(problem, dtype=jnp.float32, precondition="rline",
+                         vmem_cheb_degree=2)
 
 
 def test_resolve_precondition_rtol_wrt():
@@ -75,222 +77,13 @@ def test_resolve_precondition_rtol_wrt():
         == "rline"
     # refined runs are normalized to inner wrt-'b' stopping already and
     # keep their own resolution
-    assert resolve_recording_precondition(
-        False, f32, f64_refine=1, vmem_single=True) == "adaptive"
-
-
-def test_batched_adaptive_matches_static_lanes():
-    """The per-config adaptive rline/adi switch (round-5, VERDICT r4 item
-    8) is bitwise the static kernel per lane: flagged lanes equal the adi
-    kernel's trajectory, unflagged lanes the rline kernel's."""
-    import jax
-    from heatflow_tpu.geometry import build_layout, coupler_watcher_points
-    from heatflow_tpu.mesh.structured import build_structured_mesh
-    from heatflow_tpu.ops.pallas_cg import cg_vmem_batched_tol
-    from heatflow_tpu.ops.stencil import combine_operator
-    from heatflow_tpu.sim.bc import HeatingCurve
-    from heatflow_tpu.sim.problem import build_problem
-
-    cfg = tiny_no_diamond_cfg(coarse=3.0)
-    df = synthetic_heating()
-    heating = HeatingCurve(time=df["time"].to_numpy(),
-                           temp=df["temp"].to_numpy(),
-                           oside=df["oside"].to_numpy())
-    domain, mats = build_layout(cfg)
-    mesh = build_structured_mesh(domain, mats)
-    problem = build_problem(mesh, heating, cfg,
-                            watcher_points=coupler_watcher_points(cfg))
-    dev = problem.device_arrays(jnp.float32)
-    dt = jnp.asarray(problem.dt, jnp.float32)
-    A0, _M = combine_operator(dev["K"], dev["M"], dev["kappas"],
-                              dev["rho_cvs"], dt)
-    Kv = dev["K"][list(problem.mesh.material_tags).index("p_sample")]
-    free, dirich = dev["free"], dev["dirichlet"]
-    B = 4
-    rng = np.random.default_rng(0)
-    dks = jnp.asarray(np.linspace(0, 2e-7, B), jnp.float32)
-    diag = A0[0][None] + dks[:, None, None] * Kv[0][None]
-    s = jax.lax.rsqrt(jnp.where(diag > 0, diag, 1.0)) * free + dirich
-    sm = s * free
-    nz, nr = problem.mesh.shape
-    b = jnp.asarray(rng.standard_normal((B, nz, nr)).astype(np.float32)) \
-        * sm
-    x0 = jnp.zeros_like(b)
-    flags = jnp.asarray([1, 0, 1, 0], jnp.int32)
-    kw = dict(maxiter=2000, interpret=True)
-    xa, ita = cg_vmem_batched_tol(A0, Kv, dks, sm, b, x0, 1e-6,
-                                  adi_flags=flags, **kw)
-    xr, itr = cg_vmem_batched_tol(A0, Kv, dks, sm, b, x0, 1e-6,
-                                  rline=True, **kw)
-    xd, itd = cg_vmem_batched_tol(A0, Kv, dks, sm, b, x0, 1e-6,
-                                  adi=True, **kw)
-    xa, xr, xd = map(np.asarray, (xa, xr, xd))
-    for i in range(B):
-        ref = xd[i] if int(flags[i]) else xr[i]
-        its_ref = (itd if int(flags[i]) else itr)[i]
-        np.testing.assert_array_equal(xa[i], ref)
-        assert int((ita if True else 0)[i]) == int(its_ref)
-    with pytest.raises(ValueError, match="adi_flags"):
-        cg_vmem_batched_tol(A0, Kv, dks, sm, b, x0, 1e-6,
-                            adi_flags=flags, rline=True, **kw)
-
-
-def test_sweep_scan_adaptive_runs():
-    """make_sweep_fn(precondition='adaptive'): finite traces, tolerance-
-    equal to the static rline engine."""
-    from heatflow_tpu.geometry import build_layout, coupler_watcher_points
-    from heatflow_tpu.mesh.structured import build_structured_mesh
-    from heatflow_tpu.sim.bc import HeatingCurve
-    from heatflow_tpu.sim.problem import build_problem
-    from heatflow_tpu.sim.sweepkernel import make_sweep_fn
-
-    cfg = tiny_no_diamond_cfg(coarse=3.0)
-    cfg["timing"]["num_steps"] = 4
-    df = synthetic_heating()
-    heating = HeatingCurve(time=df["time"].to_numpy(),
-                           temp=df["temp"].to_numpy(),
-                           oside=df["oside"].to_numpy())
-    domain, mats = build_layout(cfg)
-    mesh = build_structured_mesh(domain, mats)
-    problem = build_problem(mesh, heating, cfg,
-                            watcher_points=coupler_watcher_points(cfg))
-    ks = np.array([2.0, 3.8, 7.5])
-    fs = np.full(3, 6e-6)
-    fn_a = make_sweep_fn(problem, dtype=jnp.float32, solver="vmem",
-                         precondition="adaptive", rtol=1e-5,
-                         rtol_wrt="r0")
-    fn_r = make_sweep_fn(problem, dtype=jnp.float32, solver="vmem",
-                         precondition="rline", rtol=1e-5, rtol_wrt="r0")
-    ta = np.asarray(fn_a(ks, fs))
-    tr = np.asarray(fn_r(ks, fs))
-    assert np.isfinite(ta).all()
-    scale = np.abs(tr).max()
-    assert np.abs(ta - tr).max() / scale < 1e-3   # tolerance-class equal
-    with pytest.raises(ValueError, match="tolerance-based"):
-        make_sweep_fn(problem, dtype=jnp.float32, solver="vmem",
-                      precondition="adaptive", fixed_iters=5)
-
-
-class TestMgz:
-    """Round-5 in-kernel z-semicoarsened MG-rline preconditioner
-    (VERDICT r4 item 5): operand pack, symmetry, iteration cut, kernel
-    and stepper integration (interpret mode)."""
-
-    @pytest.fixture(scope="class")
-    def prob(self):
-        import jax
-        from heatflow_tpu.geometry import (build_layout,
-                                           coupler_watcher_points)
-        from heatflow_tpu.mesh.structured import build_structured_mesh
-        from heatflow_tpu.sim.bc import HeatingCurve
-        from heatflow_tpu.sim.problem import build_problem
-        from heatflow_tpu.ops.stencil import combine_operator
-
-        cfg = tiny_no_diamond_cfg(coarse=1.5)
-        df = synthetic_heating()
-        heating = HeatingCurve(time=df["time"].to_numpy(),
-                               temp=df["temp"].to_numpy(),
-                               oside=df["oside"].to_numpy())
-        domain, mats = build_layout(cfg)
-        mesh = build_structured_mesh(domain, mats)
-        problem = build_problem(mesh, heating, cfg,
-                                watcher_points=coupler_watcher_points(cfg))
-        dev = problem.device_arrays(jnp.float32)
-        dt = jnp.asarray(problem.dt, jnp.float32)
-        A7, M_op = combine_operator(dev["K"], dev["M"], dev["kappas"],
-                                    dev["rho_cvs"], dt)
-        free, dirich = dev["free"], dev["dirichlet"]
-        s = jax.lax.rsqrt(jnp.where(A7[0] > 0, A7[0], 1.0)) * free + dirich
-        return problem, A7, M_op, s, free
-
-    def test_vcycle_symmetric_and_cuts_iterations(self, prob):
-        from heatflow_tpu.ops.mgz import mgz_pack, mgz_reference_vcycle
-        problem, A7, M_op, s, free = prob
-        pack = mgz_pack(np.asarray(A7), np.asarray(s), np.asarray(free),
-                        np.float64)
-        prec = mgz_reference_vcycle(A7, s, free, pack, sweeps=2)
-        nz, nr = problem.mesh.shape
-        rng = np.random.default_rng(0)
-        u = rng.standard_normal((nz, nr)) * np.asarray(free)
-        v = rng.standard_normal((nz, nr)) * np.asarray(free)
-        lhs = (v * prec(u)).sum()
-        rhs = (u * prec(v)).sum()
-        assert abs(lhs - rhs) / abs(lhs) < 1e-10
-
-    def test_kernel_matches_and_converges_faster(self, prob):
-        from heatflow_tpu.ops.mgz import mgz_pack
-        from heatflow_tpu.ops.pallas_cg import cg_vmem_tol, pcr_pack
-        from heatflow_tpu.ops.stencil import apply_stencil
-        problem, A7, M_op, s, free = prob
-        nz, nr = problem.mesh.shape
-        sm = s * free
-        pack = mgz_pack(np.asarray(A7), np.asarray(s), np.asarray(free),
-                        np.float32)
-        mgz = {k: jnp.asarray(v) for k, v in pack.items()}
-        pcr = pcr_pack(A7, s, free)
-        b = sm * apply_stencil(
-            M_op, jnp.full((nz, nr), problem.ic_temp, jnp.float32))
-        x0 = jnp.zeros_like(b)
-        kw = dict(maxiter=2000, rtol_wrt="b", interpret=True)
-        x_rl, it_rl = cg_vmem_tol(A7, sm, b, x0, 1e-6, pcr=pcr, **kw)
-        for sweeps in (1, 2):
-            x_mg, it_mg = cg_vmem_tol(A7, sm, b, x0, 1e-6, pcr=pcr,
-                                      mgz=mgz, mgz_sweeps=sweeps, **kw)
-            assert int(it_mg) < int(it_rl) / 2, (int(it_mg), int(it_rl))
-            d = float(jnp.max(jnp.abs(x_mg - x_rl))
-                      / jnp.max(jnp.abs(x_rl)))
-            assert d < 1e-3
-
-    def test_stepper_mgz(self, prob):
-        import unittest.mock as mock
-        from heatflow_tpu.ops import pallas_cg as pcg_mod
-        from heatflow_tpu.sim.stepper import run_transient
-        problem = prob[0]
-        orig = pcg_mod.cg_vmem_tol
-
-        def interp_tol(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
-
-        with mock.patch("heatflow_tpu.ops.pallas_cg.cg_vmem_tol",
-                        interp_tol):
-            res_m = run_transient(problem, dtype=jnp.float32, rtol=1e-5,
-                                  solver="vmem", precondition="mgz",
-                                  record_gradient=False)
-            res_r = run_transient(problem, dtype=jnp.float32, rtol=1e-5,
-                                  solver="vmem", precondition="rline",
-                                  record_gradient=False)
-        wm = np.asarray(res_m.watcher)
-        wr = np.asarray(res_r.watcher)
-        assert np.isfinite(wm).all()
-        assert np.asarray(res_m.cg_iters).mean() \
-            < np.asarray(res_r.cg_iters).mean() / 2
-        assert np.abs(wm - wr).max() / np.abs(wr).max() < 1e-3
-
-    def test_mgz_rejects_coefficient_override(self, prob):
-        import unittest.mock as mock
-        from heatflow_tpu.ops import pallas_cg as pcg_mod
-        from heatflow_tpu.sim.stepper import make_simulate_fn
-        problem = prob[0]
-        orig = pcg_mod.cg_vmem_tol
-
-        def interp_tol(*a, **kw):
-            kw["interpret"] = True
-            return orig(*a, **kw)
-
-        with mock.patch("heatflow_tpu.ops.pallas_cg.cg_vmem_tol",
-                        interp_tol):
-            fn = make_simulate_fn(problem, dtype=jnp.float32, rtol=1e-5,
-                                  record_gradient=False, solver="vmem",
-                                  precondition="mgz", maxiter=2001)
-            with pytest.raises(ValueError, match="default coefficients"):
-                fn(kappas=np.asarray(problem.kappas) * 1.1)
+    assert resolve_recording_precondition(False, f32, f64_refine=1) \
+        == "rline"
 
 
 def test_vmem_only_preconditions_reject_z_sharding():
-    """adaptive/mgz + mesh z-sharding must raise the clean requires-VMEM
-    ValueError, not slip past validation with a stale use_vmem and crash
-    later (round-5 review finding)."""
+    """The retired adaptive/mgz preconditioners raise a clean ValueError
+    under mesh z-sharding too, before any device work."""
     import jax
     from jax.sharding import Mesh
     from heatflow_tpu.geometry import build_layout, coupler_watcher_points
@@ -312,7 +105,7 @@ def test_vmem_only_preconditions_reject_z_sharding():
     devs = np.array(jax.devices()[:1]).reshape(1, 1)
     dev_mesh = Mesh(devs, axis_names=("config", "z"))
     for prec in ("adaptive", "mgz"):
-        with pytest.raises(ValueError, match="VMEM"):
+        with pytest.raises(ValueError, match="unknown precondition"):
             make_simulate_fn(problem, dtype=jnp.float32, rtol=1e-5,
                              record_gradient=False, precondition=prec,
                              mesh=dev_mesh, maxiter=2002)

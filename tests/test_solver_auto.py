@@ -1,20 +1,18 @@
-"""Round-3 driver defaults, part 2: solver='auto'.
+"""Driver defaults: solver='auto'.
 
-Both drivers now default to solver='auto' — the batched VMEM Pallas engine
-on TPU f32 whenever the working set fits, the XLA streaming path otherwise
-(plain f64_refine sweeps always run the VMEM engine, the only one that
-refines without record_gradient). The sweep driver resolves per width
-group (mesh shape known there) and records what actually executed in
-sweep_metadata.json's solver_resolved — metadata must report what ran,
-not what was requested.
+'auto' (the drivers' default) and 'xla' both name the one XLA engine, for
+every dtype, preconditioner and mesh kind; the sweep driver records the
+engine that ran in sweep_metadata.json.
 """
 
 import json
 import os
 
 import jax.numpy as jnp
-import numpy as np
+import pytest
 import yaml
+
+from heatflow_tpu.sim.stepper import PRECONDITIONERS
 
 from heatflow_tpu.drivers import sweep as sweep_mod
 from tests.fixtures import synthetic_heating, tiny_no_diamond_cfg
@@ -28,32 +26,53 @@ def _tiny_mesh(tmp_path):
     return build_structured_mesh(domain, mats)
 
 
-def test_resolve_solver_matrix(tmp_path, monkeypatch):
-    mesh = _tiny_mesh(tmp_path)
-    res = sweep_mod._resolve_solver
-    kw = dict(precondition="jacobi", f64_refine=0, record_gradient=False)
+@pytest.fixture(scope="module")
+def problems():
+    from heatflow_tpu.geometry import build_layout, coupler_watcher_points
+    from heatflow_tpu.mesh.structured import build_structured_mesh
+    from heatflow_tpu.mesh.unstructured_gen import build_unstructured_mesh
+    from heatflow_tpu.sim.bc import HeatingCurve
+    from heatflow_tpu.sim.problem import build_problem
+    from heatflow_tpu.sim.unstructured import build_problem_unstructured
+    cfg = tiny_no_diamond_cfg(coarse=3.0)
+    cfg["timing"]["num_steps"] = 2
+    df = synthetic_heating()
+    heating = HeatingCurve(time=df["time"].to_numpy(),
+                           temp=df["temp"].to_numpy())
+    domain, mats = build_layout(cfg)
+    wp = coupler_watcher_points(cfg)
+    return {
+        "structured": build_problem(build_structured_mesh(domain, mats),
+                                    heating, cfg, watcher_points=wp),
+        "unstructured": build_problem_unstructured(
+            build_unstructured_mesh(domain, mats, jitter=0.25, seed=7),
+            heating, cfg, watcher_points=wp),
+    }
 
-    # explicit choices pass through untouched
-    assert res("xla", mesh, dtype=jnp.float32, **kw) == "xla"
-    assert res("vmem", mesh, dtype=jnp.float32, **kw) == "vmem"
-    # off-TPU (this test runs on CPU): auto → xla
-    assert res("auto", mesh, dtype=jnp.float32, **kw) == "xla"
-    # plain refine sweeps only exist on the VMEM engine
-    assert res("auto", mesh, dtype=jnp.float32, precondition="jacobi",
-               f64_refine=1, record_gradient=False) == "vmem"
-    # recording refine has an XLA engine too — normal resolution (CPU→xla)
-    assert res("auto", mesh, dtype=jnp.float32, precondition="jacobi",
-               f64_refine=1, record_gradient=True) == "xla"
 
-    # emulate the TPU backend: f32 fitting mesh → vmem; f64 → xla
-    monkeypatch.setattr(sweep_mod.jax, "default_backend", lambda: "tpu")
-    assert res("auto", mesh, dtype=jnp.float32, **kw) == "vmem"
-    assert res("auto", mesh, dtype=jnp.float64, **kw) == "xla"
-
-    # an over-budget grid falls back to the streaming path
-    class Huge:
-        shape = (4096, 8192)
-    assert res("auto", Huge(), dtype=jnp.float32, **kw) == "xla"
+@pytest.mark.parametrize("mesh_kind", ["structured", "unstructured"])
+@pytest.mark.parametrize("precondition", PRECONDITIONERS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_resolve_solver_matrix(problems, mesh_kind, precondition, dtype):
+    """'auto' builds exactly the engine 'xla' builds (the makers memoize on
+    the resolved solver, so both return the same callable); the unstructured
+    engine rejects preconditioners it does not have under either name."""
+    from heatflow_tpu.sim.stepper import make_simulate_fn
+    from heatflow_tpu.sim.unstructured import make_simulate_fn_unstructured
+    from heatflow_tpu.utils import resolve_solver
+    assert resolve_solver("auto") == resolve_solver("xla") == "xla"
+    problem = problems[mesh_kind]
+    maker = (make_simulate_fn if mesh_kind == "structured"
+             else make_simulate_fn_unstructured)
+    kw = dict(dtype=jnp.dtype(dtype), precondition=precondition,
+              record_gradient=False)
+    if mesh_kind == "unstructured" and precondition != "jacobi":
+        for solver in ("auto", "xla"):
+            with pytest.raises(ValueError, match="precondition"):
+                maker(problem, solver=solver, **kw)
+        return
+    assert maker(problem, solver="auto", **kw) is \
+        maker(problem, solver="xla", **kw)
 
 
 def test_sweep_metadata_records_resolved_solver(tmp_path):
@@ -74,16 +93,15 @@ def test_sweep_metadata_records_resolved_solver(tmp_path):
         suppress_print=True, dtype=jnp.float32)
     assert len(results) == 2 and not failed
     meta = json.load(open(os.path.join(out, "sweep_metadata.json")))
-    assert meta["solver"] == "auto"
-    # CPU test backend: auto resolves to the XLA path, and the metadata
-    # says so per width group
-    assert meta["solver_resolved"] == {f"{width:.6e}": "xla"}
+    # the metadata names the engine that ran, not the requested alias
+    assert meta["solver"] == "xla"
+    assert "solver_resolved" not in meta
 
 
 def test_sweep_driver_resolves_warm_start(tmp_path):
     """f32 recording sweeps default to extrapolated warm starts (solve +
-    per-step projection seed) — the +35-40%-at-flat-accuracy point; the
-    resolved value reaches the maker (captured via its memoization key)."""
+    per-step projection seed); the resolved value reaches the maker
+    (captured via its memoization key)."""
     from heatflow_tpu.sim import sweepkernel
 
     heat_csv = tmp_path / "heat.csv"

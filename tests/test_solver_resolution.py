@@ -1,24 +1,17 @@
-"""Round-3 review fixes: engine/preconditioner resolution edge cases.
+"""Engine/preconditioner resolution edge cases.
 
-1. ``make_simulate_fn(solver='vmem')`` on an over-budget problem raises
-   (the guard had become dead code nested under ``mesh is not None``, so
-   an explicit VMEM request silently ran — and reported — the XLA path).
-2. ``make_simulate_fn(mesh=..., solver='auto')`` resolves to the XLA path
-   instead of raising on problems that would fit VMEM on TPU f32 (the
-   documented ``run2d --z-shards`` combination with the default solver).
-3. ``precondition='zline'``: the VMEM kernel has no z-line PCR — an
-   explicit ``solver='vmem'`` errors instead of silently dropping the
-   preconditioner, and ``'auto'`` routes to the XLA path which honors it.
-4. Unstructured rline runs ONLY on the grid-overlay VMEM engine: asking
-   for it with an engine that cannot apply it raises instead of silently
-   running unpreconditioned; drivers resolve DEFAULTED rline through
-   ``auto_selects_vmem`` first.
-5. Sweep-driver rtol defaults are width-independent — the resolution used
+1. The XLA engine is the only one: ``solver='vmem'`` (the retired Pallas
+   engine) raises, and 'auto'/'xla' build the XLA engine with every
+   preconditioner, including under a z-sharding device mesh.
+2. ``precondition='zline'`` and ``'mg'`` are applied, not dropped.
+3. Unstructured problems precondition with Jacobi scaling only: asking for
+   rline/adi raises instead of silently running unpreconditioned; the
+   drivers' DEFAULTED preconditioner resolves to jacobi there.
+4. Sweep-driver rtol defaults are width-independent — the resolution used
    to mutate its own "was rtol given?" check inside the width loop, so
    recording sweeps lost the tighter 1e-5 default from width 2 on.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,39 +39,24 @@ def tiny_problem(tmp_path):
     return cfg, problem
 
 
-def test_vmem_budget_guard_raises(tiny_problem, monkeypatch):
-    import heatflow_tpu.ops.pallas_cg as pcg_mod
+def test_zline_vmem_raises_auto_falls_back(tiny_problem):
     _cfg, problem = tiny_problem
-    monkeypatch.setattr(pcg_mod, "fits_in_vmem",
-                        lambda *a, **k: False)
-    with pytest.raises(ValueError, match="VMEM budget"):
-        make_simulate_fn(problem, dtype=jnp.float32, solver="vmem",
-                         maxiter=7701)
-
-
-def test_zline_vmem_raises_auto_falls_back(tiny_problem, monkeypatch):
-    _cfg, problem = tiny_problem
-    with pytest.raises(ValueError, match="zline"):
+    with pytest.raises(ValueError, match="unknown solver 'vmem'"):
         make_simulate_fn(problem, dtype=jnp.float32, solver="vmem",
                          precondition="zline", maxiter=7702)
 
-    # 'auto' on (emulated) TPU f32 would pick VMEM — zline must route to
-    # the XLA path, which applies the preconditioner, not drop it
-    import heatflow_tpu.sim.stepper as stepper_mod
-    monkeypatch.setattr(stepper_mod.jax, "default_backend", lambda: "tpu")
+    # 'auto' builds the XLA engine, which applies the preconditioner
     fn = make_simulate_fn(problem, dtype=jnp.float32, solver="auto",
                           precondition="zline", rtol=1e-4, maxiter=7703)
-    monkeypatch.undo()
     ys = fn()
     assert np.isfinite(np.asarray(ys["watch"])).all()
     assert np.asarray(ys["cg_iters"]).max() > 0
 
 
-def test_mesh_with_auto_resolves_to_xla(tiny_problem, monkeypatch):
-    """run2d --z-shards N with the default solver='auto' must build and
-    run (previously: hard ValueError whenever the problem fit VMEM)."""
+def test_mesh_with_auto_resolves_to_xla(tiny_problem):
+    """run2d --z-shards N with the default solver='auto' builds and runs
+    the XLA engine."""
     from heatflow_tpu.parallel.sharding import config_mesh
-    import heatflow_tpu.sim.stepper as stepper_mod
     _cfg, problem = tiny_problem
     nz = problem.mesh.shape[0]
     zs = 2 if nz % 2 == 0 else 1
@@ -86,25 +64,21 @@ def test_mesh_with_auto_resolves_to_xla(tiny_problem, monkeypatch):
         pytest.skip("odd Nz in fixture")
     dmesh = config_mesh(zs, z_shards=zs)
 
-    monkeypatch.setattr(stepper_mod.jax, "default_backend", lambda: "tpu")
     fn = make_simulate_fn(problem, dtype=jnp.float32, solver="auto",
                           mesh=dmesh, rtol=1e-4, maxiter=7704,
                           record_gradient=False)
-    monkeypatch.undo()
     ys = fn()
     assert np.isfinite(np.asarray(ys["watch"])).all()
 
-    # explicit 'vmem' with a device mesh still errors (whole problems stay
-    # on one chip in the VMEM engine)
-    with pytest.raises(ValueError, match="z-sharding"):
+    # the retired engine's name is rejected with a device mesh too
+    with pytest.raises(ValueError, match="unknown solver"):
         make_simulate_fn(problem, dtype=jnp.float32, solver="vmem",
                          mesh=dmesh, maxiter=7705)
 
 
 def test_unstructured_rline_requires_vmem_engine(tmp_path):
     from heatflow_tpu.mesh.unstructured_gen import build_unstructured_mesh
-    from heatflow_tpu.sim.unstructured import (auto_selects_vmem,
-                                               build_problem_unstructured,
+    from heatflow_tpu.sim.unstructured import (build_problem_unstructured,
                                                make_simulate_fn_unstructured)
     heat_csv = tmp_path / "heat.csv"
     synthetic_heating(heat_csv)
@@ -117,18 +91,19 @@ def test_unstructured_rline_requires_vmem_engine(tmp_path):
         umesh, HeatingCurve.from_csv(str(heat_csv)), cfg,
         watcher_points=coupler_watcher_points(cfg))
 
-    # on CPU, 'auto' resolves to the XLA/ELL path — no rline engine there;
-    # the maker must refuse rather than silently run unpreconditioned
-    assert not auto_selects_vmem(umesh, jnp.float32, "rline")
-    with pytest.raises(ValueError, match="grid-overlay VMEM engine"):
-        make_simulate_fn_unstructured(problem, dtype=jnp.float32,
-                                      solver="auto", precondition="rline",
-                                      maxiter=7706)
+    # the XLA engine has no line solve on unstructured meshes; the maker
+    # must refuse rather than silently run unpreconditioned
+    for prec in ("rline", "adi"):
+        with pytest.raises(ValueError, match="not available on "
+                                             "unstructured"):
+            make_simulate_fn_unstructured(problem, dtype=jnp.float32,
+                                          solver="auto", precondition=prec,
+                                          maxiter=7706)
 
     # the drivers' DEFAULT therefore resolves to jacobi here
     from heatflow_tpu.utils import resolve_recording_precondition
     assert resolve_recording_precondition(
-        True, jnp.float32, unstructured_xla=True) == "jacobi"
+        True, jnp.float32, unstructured=True) == "jacobi"
 
     # the unstructured stepper/sweep makers implement the linear seed
     # only — unknown/unsupported warm starts raise instead of silently
@@ -183,58 +158,6 @@ def test_sweep_rtol_defaults_width_independent(tmp_path, monkeypatch):
     assert seen == [1e-5, 1e-5]
 
 
-def test_sweep_resolver_uses_batched_vmem_budget_on_overlays(monkeypatch):
-    """6. (review-4 revision) The sweep driver resolves 'auto' against the
-    BATCHED working set (sweep_auto_selects_vmem ≡ the guard
-    _sweep_vmem_unstructured enforces: shared A0+K_var + per-config
-    operator), not the single-problem auto_selects_vmem. For overlay
-    shapes in the budget gap — single-problem kernel fits, batched sweep
-    kernel does not — 'auto' must fall back to 'xla' instead of picking an
-    engine the maker then rejects with a ValueError. (This replaces the
-    earlier test that pinned agreement with the single-problem predicate,
-    which asserted exactly that crash-prone resolution.)"""
-    from heatflow_tpu.drivers.sweep import _resolve_solver
-    from heatflow_tpu.mesh.msh_io import UnstructuredMesh
-    from heatflow_tpu.ops.pallas_cg import (VMEM_BUDGET, fits_in_vmem,
-                                            fits_in_vmem_batched,
-                                            rline_extra_planes)
-    from heatflow_tpu.sim.unstructured import (auto_selects_vmem,
-                                               sweep_auto_selects_vmem)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    nr = 1107                      # flagship lane count: L=11 PCR levels
-    extra = rline_extra_planes(nr)           # folded 2L+1 factor layout
-    single = 9 + 6 + extra                   # single-problem working set
-    batched = 3 * 9 + 6 + extra              # batched sweep working set
-    lo = VMEM_BUDGET // (batched * nr * 4)
-    hi = VMEM_BUDGET // (single * nr * 4)
-    assert hi > lo + 1, "budget gap vanished — recompute the plane counts"
-    nz_gap = (lo + 1 + hi) // 2
-    assert fits_in_vmem(nz_gap, nr, jnp.float32, n_points=9,
-                        extra_planes=extra)
-    assert not fits_in_vmem_batched(nz_gap, nr, jnp.float32, n_points=9,
-                                    rline=True)
-
-    mesh = object.__new__(UnstructuredMesh)
-    mesh.grid_overlay = {"shape": (nz_gap, nr)}
-    assert auto_selects_vmem(mesh, jnp.float32, precondition="rline")
-    assert not sweep_auto_selects_vmem(mesh, jnp.float32,
-                                       precondition="rline")
-    assert _resolve_solver("auto", mesh, dtype=jnp.float32,
-                           precondition="rline", f64_refine=0,
-                           record_gradient=True) == "xla"
-
-    # below the gap both predicates agree and 'auto' keeps the fast engine
-    mesh2 = object.__new__(UnstructuredMesh)
-    mesh2.grid_overlay = {"shape": (max(1, lo - 1), nr)}
-    assert sweep_auto_selects_vmem(mesh2, jnp.float32,
-                                   precondition="rline")
-    assert _resolve_solver("auto", mesh2, dtype=jnp.float32,
-                           precondition="rline", f64_refine=0,
-                           record_gradient=True) == "vmem"
-
-
 def test_inner_seed_validated_even_without_refine(tiny_problem):
     """7. inner_seed typos raise even when f64_refine=0 (the normalization
     to 'zero' used to run before validation, silently accepting any
@@ -245,40 +168,31 @@ def test_inner_seed_validated_even_without_refine(tiny_problem):
                          inner_seed="cary", maxiter=7703)
 
 
-def test_mg_vmem_raises_auto_falls_back(tiny_problem, monkeypatch):
-    """Review-pass 3: the VMEM kernel has no mg V-cycle — an explicit
-    ``solver='vmem'`` errors instead of silently building (and dropping)
-    the hierarchy, and ``'auto'`` routes mg to the XLA path which applies
-    it (previously run2d --precondition mg under the 'auto' default ran
-    unpreconditioned on TPU f32)."""
+def test_mg_vmem_raises_auto_falls_back(tiny_problem):
+    """``solver='vmem'`` is rejected, and ``'auto'`` builds the XLA engine
+    with the mg V-cycle applied."""
     _cfg, problem = tiny_problem
-    with pytest.raises(ValueError, match="mg"):
+    with pytest.raises(ValueError, match="unknown solver"):
         make_simulate_fn(problem, dtype=jnp.float32, solver="vmem",
                          precondition="mg", maxiter=7707)
 
-    import heatflow_tpu.sim.stepper as stepper_mod
-    monkeypatch.setattr(stepper_mod.jax, "default_backend", lambda: "tpu")
     fn = make_simulate_fn(problem, dtype=jnp.float32, solver="auto",
                           precondition="mg", rtol=1e-4, maxiter=7708)
-    monkeypatch.undo()
     ys = fn()
     assert np.isfinite(np.asarray(ys["watch"])).all()
 
 
-def test_sweep_driver_resolver_routes_mg_to_xla(monkeypatch):
+def test_sweep_driver_resolver_routes_mg_to_xla(tiny_problem):
     """--precondition mg under the sweep driver's solver='auto' default
-    must pick the XLA engine (the vmem maker rejects mg), not crash."""
-    from heatflow_tpu.drivers.sweep import _resolve_solver
-
-    class _GridMesh:
-        shape = (16, 32)
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    common = dict(dtype=jnp.float32, f64_refine=0, record_gradient=False)
-    assert _resolve_solver("auto", _GridMesh(),
-                           precondition="jacobi", **common) == "vmem"
-    assert _resolve_solver("auto", _GridMesh(),
-                           precondition="mg", **common) == "xla"
+    builds the XLA sweep engine with the V-cycle."""
+    from heatflow_tpu.sim.sweepkernel import make_sweep_fn
+    from heatflow_tpu.utils import resolve_solver
+    _cfg, problem = tiny_problem
+    assert resolve_solver("auto") == resolve_solver("xla") == "xla"
+    tr = np.asarray(make_sweep_fn(problem, dtype=jnp.float32, rtol=1e-4,
+                                  precondition="mg")(np.array([3.0]),
+                                                     np.array([4e-6])))
+    assert np.isfinite(tr).all()
 
 
 def test_sweep_xla_rline_is_applied(tiny_problem):

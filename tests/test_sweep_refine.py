@@ -1,13 +1,13 @@
 """Mixed-precision sweeps: make_sweep_fn(f64_refine=N) — f64-operator
-residual refinement around the f32 batched VMEM correction kernel, per
-sweep lane (the sweep twin of stepper.make_simulate_fn(f64_refine=N),
-pinned in tests/test_refine.py). Each lane's converged trajectory is the
-f64 operator's solution while the per-iteration work stays f32/VMEM.
+residual refinement around f32 correction solves, per sweep lane (the
+sweep twin of stepper.make_simulate_fn(f64_refine=N), pinned in
+tests/test_refine.py). Each lane's converged trajectory is the f64
+operator's solution while the per-iteration work stays f32.
 
-Also pins the per-config rtol plumbing of cg_vmem_batched_tol (the
-degenerate-lane guard the refinement uses) and the rtol_wrt pass-through
-on the unstructured sweep maker (regression: the sweep driver forwards
-rtol_wrt to both mesh kinds)."""
+Also pins the per-lane rtol plumbing of the vmapped CG (the degenerate-lane
+guard the refinement uses) and the rtol_wrt pass-through on the
+unstructured sweep maker (regression: the sweep driver forwards rtol_wrt
+to both mesh kinds)."""
 
 import jax
 import jax.numpy as jnp
@@ -47,13 +47,13 @@ def sweep_problem():
 
 def test_sweep_refine_breaks_f32_floor(sweep_problem):
     """Refined f32 sweep lands orders of magnitude closer to the f64
-    trajectories than the plain f32 vmem sweep at the same inner rtol."""
+    trajectories than the plain f32 sweep at the same inner rtol."""
     problem, truth = sweep_problem
     plain = np.asarray(make_sweep_fn(
-        problem, dtype=jnp.float32, solver="vmem", rtol=1e-5,
+        problem, dtype=jnp.float32, rtol=1e-5,
         maxiter=20000)(KS, FS), np.float64)
     refined = make_sweep_fn(
-        problem, dtype=jnp.float32, solver="vmem", rtol=1e-5,
+        problem, dtype=jnp.float32, rtol=1e-5,
         maxiter=20000, f64_refine=2)(KS, FS)
     # fields and traces are carried in f64
     assert np.asarray(refined).dtype == np.float64
@@ -68,7 +68,7 @@ def test_sweep_refine_composes_with_rline_and_extrapolate(sweep_problem):
     to the same f64 trajectories."""
     problem, truth = sweep_problem
     refined = np.asarray(make_sweep_fn(
-        problem, dtype=jnp.float32, solver="vmem", rtol=1e-5,
+        problem, dtype=jnp.float32, rtol=1e-5,
         maxiter=20000, f64_refine=2, precondition="rline",
         warm_start="extrapolate")(KS, FS))
     assert np.abs(refined - truth).max() < 1e-4
@@ -79,13 +79,13 @@ def test_sweep_refine_time_chunked_matches_full(sweep_problem):
     chunk boundaries — the chunked trajectory equals the unchunked one."""
     problem, _ = sweep_problem
     full = np.asarray(make_sweep_fn(
-        problem, dtype=jnp.float32, solver="vmem", rtol=1e-6,
+        problem, dtype=jnp.float32, rtol=1e-6,
         maxiter=20000, f64_refine=2,
         warm_start="extrapolate")(KS, FS))
     ch = run_sweep_time_chunked(problem, KS, FS, step_chunk=2,
                                 dtype=jnp.float32, rtol=1e-6,
                                 maxiter=20000, f64_refine=2,
-                                solver="vmem", warm_start="extrapolate")
+                                warm_start="extrapolate")
     np.testing.assert_allclose(ch, full, rtol=0,
                                atol=1e-7 * np.abs(full).max())
 
@@ -105,7 +105,7 @@ def test_sweep_refine_unstructured_overlay():
     truth = np.asarray(make_sweep_fn_unstructured(
         problem, dtype=jnp.float64, rtol=1e-12)(KS, FS), np.float64)
     refined = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float32, solver="vmem", rtol=1e-5,
+        problem, dtype=jnp.float32, rtol=1e-5,
         maxiter=20000, f64_refine=2)(KS, FS))
     assert np.abs(refined - truth).max() < 1e-4
 
@@ -123,8 +123,8 @@ def test_unstructured_sweep_rtol_wrt_accepted():
     problem = build_problem_unstructured(
         umesh, heating, cfg, watcher_points=coupler_watcher_points(cfg))
     out = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, rtol_wrt="r0",
-        solver="vmem")(KS[:2], FS[:2]))
+        problem, dtype=jnp.float64, rtol=1e-10,
+        rtol_wrt="r0")(KS[:2], FS[:2]))
     ref = np.asarray(make_sweep_fn_unstructured(
         problem, dtype=jnp.float64, rtol=1e-12)(KS[:2], FS[:2]))
     assert np.isfinite(out).all()
@@ -163,13 +163,12 @@ def test_sweep_refine_one_config_fallback(sweep_problem):
     """The maker's .one_config attribute stays usable on a refined sweep fn
     (regression: it seeded the scan carry at f32 against f64 ops)."""
     problem, truth = sweep_problem
-    fn = make_sweep_fn(problem, dtype=jnp.float32, solver="vmem",
+    fn = make_sweep_fn(problem, dtype=jnp.float32,
                        rtol=1e-5, maxiter=20000, f64_refine=2)
     tr = np.asarray(fn.one_config(KS[0], FS[0]))
     assert np.isfinite(tr).all()
-    # single-config fallback runs the plain f64-operator solve to the
-    # sweep rtol (wrt ||b||, so looser than the refined lanes)
-    assert np.abs(tr - truth[0]).max() < 0.5
+    # the single config runs the same refined solve as the batch lanes
+    assert np.abs(tr - truth[0]).max() < 1e-4
 
 
 def test_unstructured_recording_sweep_refine():
@@ -212,7 +211,7 @@ def test_sweep_refine_tiny_residual_scales():
     fs = problem.fwhm * np.linspace(0.8, 1.25, 4)
     tr = np.asarray(make_sweep_fn(
         problem, dtype=jnp.float32, rtol=1e-6, maxiter=2000, num_steps=4,
-        f64_refine=2, solver="vmem", warm_start="extrapolate")(ks, fs))
+        f64_refine=2, warm_start="extrapolate")(ks, fs))
     truth = np.asarray(make_sweep_fn(
         problem, dtype=jnp.float64, rtol=1e-13, num_steps=4)(ks, fs))
     assert np.isfinite(tr).all()
@@ -220,27 +219,26 @@ def test_sweep_refine_tiny_residual_scales():
 
 
 def test_batched_tol_per_config_rtol():
-    """cg_vmem_batched_tol accepts a (B,) rtol — a lane at rtol>=1 stops at
+    """The vmapped CG takes a per-lane rtol — a lane at rtol>=1 stops at
     its first residual check (the refinement's degenerate-lane guard)."""
-    from heatflow_tpu.ops.pallas_cg import cg_vmem_batched_tol
+    import jax
+    from heatflow_tpu.ops.cg import pcg
+    from heatflow_tpu.ops.stencil import apply_stencil
     rng = np.random.default_rng(0)
     nz, nr = 8, 16
-    # SPD 7-point operator: diagonally dominant random stencil
     # constant off-diagonals keep the stencil operator symmetric (paired
     # offsets share the coefficient); diagonal dominance makes it SPD
     A = jnp.full((7, nz, nr), -0.3, jnp.float64)
     A = A.at[0].set(4.0 + rng.random((nz, nr)))
-    Kv = 0.05 * A
-    dks = jnp.asarray([0.0, 0.1])
-    sm = jnp.ones((2, nz, nr), jnp.float64)
     b = jnp.asarray(rng.random((2, nz, nr)))
     rtols = jnp.asarray([1e-9, 2.0])
-    x, it = cg_vmem_batched_tol(A, Kv, dks, sm, b, jnp.zeros_like(b),
-                                rtols, maxiter=400, interpret=True)
-    it = np.asarray(it)
+    sol = jax.vmap(lambda bb, rt: pcg(lambda v: apply_stencil(A, v), bb,
+                                      jnp.zeros_like(bb), rtol=rt,
+                                      maxiter=400))(b, rtols)
+    it = np.asarray(sol.iters)
     assert it[0] > 0
     assert it[1] == 0
-    assert np.allclose(np.asarray(x[1]), 0.0)
+    assert np.allclose(np.asarray(sol.x[1]), 0.0)
 
 
 def test_sweep_cli_refine_flag(tmp_path):
@@ -263,86 +261,12 @@ def test_sweep_cli_refine_flag(tmp_path):
                 "--k-range", "2.0", "7.5",
                 "--width-range", "1.84e-6", "1.84e-6",
                 "--num-points", "2", "1", "1",
-                "--solver", "vmem", "--f64-refine", "1",
+                "--solver", "xla", "--f64-refine", "1",
                 "--warm-start", "extrapolate"])
     import json
-    import pandas as pd
+    from heatflow_tpu.io.csvio import read_records_csv
     meta = json.load(open(tmp_path / "out" / "sweep_metadata.json"))
     assert meta["f64_refine"] == 1
-    succ = pd.read_csv(tmp_path / "out" / "successful_runs.csv")
-    assert len(succ) == 2 and (succ["status"] == "success").all()
-
-
-def test_recording_sweep_vmem_engine(sweep_problem):
-    """The VMEM recording engine (make_sweep_fn_recording(solver='vmem'):
-    temperature solve AND gradient projection as batched Pallas VMEM
-    solves) reproduces the XLA recording path's full artifact set."""
-    from heatflow_tpu.sim.sweepkernel import make_sweep_fn_recording
-    problem, _ = sweep_problem
-    ref = make_sweep_fn_recording(problem, dtype=jnp.float64,
-                                  rtol=1e-12)(KS, FS)
-    got = make_sweep_fn_recording(problem, dtype=jnp.float64,
-                                  rtol=1e-12, solver="vmem")(KS, FS)
-    # the two engines stop the projection at different granularities (the
-    # kernel checks every CHECK_EVERY iterations) — equality is
-    # proj-tolerance-limited, not bitwise
-    tols = {"watch": 1e-9, "band": 1e-7, "axis": 1e-7}
-    for key, tol in tols.items():
-        a = np.asarray(ref[key], np.float64)
-        b = np.asarray(got[key], np.float64)
-        assert a.shape == b.shape, key
-        if a.size == 0:
-            continue
-        scale = max(1.0, np.abs(a).max())
-        assert np.abs(a - b).max() / scale < tol, key
-
-
-def test_recording_sweep_vmem_refine(sweep_problem):
-    """f64_refine composes with the VMEM recording engine: refined lanes +
-    per-step VMEM gradient projection reproduce the f64 artifacts."""
-    from heatflow_tpu.sim.sweepkernel import make_sweep_fn_recording
-    problem, _ = sweep_problem
-    ref = make_sweep_fn_recording(problem, dtype=jnp.float64,
-                                  rtol=1e-12)(KS, FS)
-    got = make_sweep_fn_recording(problem, dtype=jnp.float32,
-                                  rtol=1e-5, maxiter=20000, solver="vmem",
-                                  f64_refine=2,
-                                  warm_start="extrapolate")(KS, FS)
-    tols = {"watch": 1e-6, "band": 1e-4, "axis": 1e-3}
-    for key, tol in tols.items():
-        a = np.asarray(ref[key], np.float64)
-        b = np.asarray(got[key], np.float64)
-        assert np.isfinite(b).all(), key
-        if a.size == 0:
-            continue
-        scale = max(1.0, np.abs(a).max())
-        assert np.abs(a - b).max() / scale < tol, key
-
-
-def test_unstructured_recording_sweep_vmem_engine():
-    """The overlay VMEM recording engine (solve + per-step projection on
-    the lattice) reproduces the unstructured XLA recording artifacts."""
-    cfg = tiny_no_diamond_cfg(coarse=2.0)
-    cfg["timing"]["num_steps"] = 3
-    domain, mats = build_layout(cfg)
-    umesh = build_unstructured_mesh(domain, mats, jitter=0.25, seed=3)
-    df = synthetic_heating()
-    heating = HeatingCurve(time=df["time"].to_numpy(),
-                          temp=df["temp"].to_numpy())
-    problem = build_problem_unstructured(
-        umesh, heating, cfg, watcher_points=coupler_watcher_points(cfg))
-    ref = make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-12,
-        record_gradient=True)(KS[:2], FS[:2])
-    got = make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-12, solver="vmem",
-        record_gradient=True)(KS[:2], FS[:2])
-    tols = {"watch": 1e-9, "band": 1e-7, "axis": 1e-7}
-    for key, tol in tols.items():
-        a = np.asarray(ref[key], np.float64)
-        b = np.asarray(got[key], np.float64)
-        assert a.shape == b.shape, (key, a.shape, b.shape)
-        if a.size == 0:
-            continue
-        scale = max(1.0, np.abs(a).max())
-        assert np.abs(a - b).max() / scale < tol, key
+    succ = read_records_csv(tmp_path / "out" / "successful_runs.csv")
+    assert len(succ) == 2
+    assert all(r["status"] == "success" for r in succ)

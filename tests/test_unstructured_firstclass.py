@@ -221,32 +221,8 @@ def test_unstructured_sweep_matches_per_config(perturbed):
         np.testing.assert_allclose(traces[i], single, rtol=1e-7, atol=1e-5)
 
 
-def test_unstructured_sweep_vmem_matches_xla(perturbed):
-    """solver='vmem' sweeps on the grid-overlay mesh (per-config VMEM
-    Pallas kernels, interpreter mode here) equal the XLA path: exact
-    trajectories with fixed_iters, converged-equal in tolerance mode."""
-    *_, problem = perturbed
-    ks = np.array([2.0, 3.8, 7.0])
-    fs = np.array([5e-6, 6e-6, 8e-6])
-
-    ref = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, fixed_iters=25)(ks, fs))
-    got = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, fixed_iters=25, solver="vmem")(ks, fs))
-    np.testing.assert_allclose(got, ref, rtol=1e-10,
-                               atol=1e-10 * np.abs(ref).max())
-
-    truth = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-11, maxiter=20000)(ks, fs))
-    tol = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-11, maxiter=20000,
-        solver="vmem")(ks, fs))
-    np.testing.assert_allclose(tol, truth, rtol=0,
-                               atol=1e-7 * np.abs(truth).max())
-
-
 def test_overlay_stencil_path_matches_ell(perturbed):
-    """The grid-overlay 9-point stencil path (TPU-fast) and the ELL gather
+    """The grid-overlay 9-point stencil path and the ELL gather
     path produce the same traces/fields on the same unstructured problem."""
     import dataclasses
     cfg, _domain, _mats, umesh, heating, problem = perturbed

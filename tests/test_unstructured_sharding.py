@@ -1,8 +1,7 @@
-"""Unstructured sweeps at structured-sweep execution parity (VERDICT r2
-item 3): config-axis device sharding, the segment API, and time-chunked
-resident execution for overlay meshes — the reference's sweep fan-out is
-mesh-kind-agnostic (ref parameter_sweep.py:436-446), so ours must be too.
-Runs on the 8-device virtual CPU mesh from conftest."""
+"""Unstructured sweeps at structured-sweep execution parity: config-axis
+device sharding through the maker and the sweep driver — the reference's
+sweep fan-out is mesh-kind-agnostic (ref parameter_sweep.py:436-446), so
+ours must be too. Runs on the 8-device virtual CPU mesh from conftest."""
 
 import jax
 import jax.numpy as jnp
@@ -32,21 +31,6 @@ def overlay_problem():
     return cfg, problem
 
 
-def test_unstructured_vmem_sweep_sharded_matches_unsharded(overlay_problem):
-    _cfg, problem = overlay_problem
-    B = 8
-    ks = np.linspace(2.0, 8.0, B)
-    fs = np.linspace(4e-6, 9e-6, B)
-    ref = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, fixed_iters=12, solver="vmem")(ks, fs))
-    dmesh = config_mesh(8, z_shards=1)
-    sh = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, fixed_iters=12, solver="vmem",
-        mesh=dmesh)(ks, fs))
-    np.testing.assert_allclose(sh, ref, rtol=1e-11,
-                               atol=1e-11 * np.abs(ref).max())
-
-
 def test_unstructured_xla_sweep_sharded_matches_unsharded(overlay_problem):
     _cfg, problem = overlay_problem
     B = 8
@@ -57,41 +41,6 @@ def test_unstructured_xla_sweep_sharded_matches_unsharded(overlay_problem):
     dmesh = config_mesh(8, z_shards=1)
     sh = np.asarray(make_sweep_fn_unstructured(
         problem, dtype=jnp.float64, fixed_iters=12, mesh=dmesh)(ks, fs))
-    np.testing.assert_allclose(sh, ref, rtol=1e-11,
-                               atol=1e-11 * np.abs(ref).max())
-
-
-def test_unstructured_time_chunked_matches_full(overlay_problem):
-    """Chunked overlay sweeps through the generic run_sweep_time_chunked:
-    equal to the single-call run, bitwise for warm_start='extrapolate'
-    (the threaded u_pp history + single-rounding times)."""
-    from heatflow_tpu.sim.sweepkernel import run_sweep_time_chunked
-    _cfg, problem = overlay_problem
-    ks = np.linspace(2.0, 8.0, 5)
-    fs = np.linspace(4e-6, 9e-6, 5)
-    for ws in ("previous", "extrapolate"):
-        full = np.asarray(make_sweep_fn_unstructured(
-            problem, dtype=jnp.float64, fixed_iters=8, solver="vmem",
-            warm_start=ws)(ks, fs))
-        ch = run_sweep_time_chunked(problem, ks, fs, step_chunk=2,
-                                    dtype=jnp.float64, fixed_iters=8,
-                                    solver="vmem", warm_start=ws)
-        assert np.array_equal(full, ch), ws
-
-
-def test_unstructured_time_chunked_sharded(overlay_problem):
-    from heatflow_tpu.sim.sweepkernel import run_sweep_time_chunked
-    _cfg, problem = overlay_problem
-    ks = np.linspace(2.0, 8.0, 5)          # padded to 8 inside
-    fs = np.linspace(4e-6, 9e-6, 5)
-    ref = run_sweep_time_chunked(problem, ks, fs, step_chunk=2,
-                                 dtype=jnp.float64, fixed_iters=8,
-                                 solver="vmem")
-    sh = run_sweep_time_chunked(problem, ks, fs, step_chunk=2,
-                                dtype=jnp.float64, fixed_iters=8,
-                                solver="vmem", mesh=config_mesh(8,
-                                                                z_shards=1))
-    assert sh.shape == ref.shape == (5, problem.num_steps, 2)
     np.testing.assert_allclose(sh, ref, rtol=1e-11,
                                atol=1e-11 * np.abs(ref).max())
 
@@ -141,61 +90,3 @@ def test_driver_unstructured_sharded_honest_metadata(overlay_problem,
         np.testing.assert_allclose(b.to_numpy(), a.to_numpy(), rtol=1e-9)
     meta = json.load(open(f"{out8}/sweep_metadata.json"))
     assert "sharded over 8 devices" in meta["engine"]
-
-
-def test_unstructured_vmem_rline_matches_jacobi(overlay_problem):
-    """Overlay stepper with in-kernel r-line PCR preconditioning: same
-    converged traces as the jacobi VMEM path, fewer CG iterations."""
-    from heatflow_tpu.sim.unstructured import make_simulate_fn_unstructured
-    _cfg, problem = overlay_problem
-    ys_j = make_simulate_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        record_gradient=False)()
-    ys_r = make_simulate_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        record_gradient=False, precondition="rline")()
-    a, b = np.asarray(ys_j["watch"]), np.asarray(ys_r["watch"])
-    np.testing.assert_allclose(b, a, rtol=1e-8, atol=1e-8 * np.abs(a).max())
-    assert (np.asarray(ys_r["cg_iters"]).sum()
-            < np.asarray(ys_j["cg_iters"]).sum())
-    import pytest as _pytest
-    with _pytest.raises(ValueError, match="VMEM"):
-        make_simulate_fn_unstructured(problem, solver="xla",
-                                      precondition="rline")
-
-
-def test_unstructured_vmem_adi_matches_jacobi(overlay_problem):
-    """Overlay stepper AND overlay sweep with the split-additive ADI
-    preconditioner (both PCR stacks on the lattice): same converged
-    traces as the jacobi VMEM paths, fewer CG iterations than rline on
-    the stepper."""
-    from heatflow_tpu.sim.unstructured import (make_simulate_fn_unstructured,
-                                               make_sweep_fn_unstructured)
-    _cfg, problem = overlay_problem
-    ys_j = make_simulate_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        record_gradient=False)()
-    ys_r = make_simulate_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        record_gradient=False, precondition="rline")()
-    ys_a = make_simulate_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        record_gradient=False, precondition="adi")()
-    a, b = np.asarray(ys_j["watch"]), np.asarray(ys_a["watch"])
-    np.testing.assert_allclose(b, a, rtol=1e-8, atol=1e-8 * np.abs(a).max())
-    assert (np.asarray(ys_a["cg_iters"]).sum()
-            < np.asarray(ys_r["cg_iters"]).sum())
-    # overlay sweep twin through the shared batched kernel
-    ks = np.linspace(2.0, 8.0, 3)
-    fs = np.linspace(4e-6, 9e-6, 3)
-    ref = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem")(ks, fs))
-    got = np.asarray(make_sweep_fn_unstructured(
-        problem, dtype=jnp.float64, rtol=1e-10, solver="vmem",
-        precondition="adi")(ks, fs))
-    np.testing.assert_allclose(got, ref, rtol=1e-8,
-                               atol=1e-8 * np.abs(ref).max())
-    import pytest as _pytest
-    with _pytest.raises(ValueError, match="VMEM"):
-        make_simulate_fn_unstructured(problem, solver="xla",
-                                      precondition="adi")
